@@ -1,0 +1,99 @@
+"""Greedy select-and-suppress NMS: the CUDA kernel and its plain version.
+
+Counterpart of ``efficientdet_tpu/kernels/nms_kernel.py::nms_select_pallas``.
+The kernel is ``csrc/nms_select.cu`` (one thread block per image, candidates
+resident in shared memory; its header says what bounds it on the H100).
+``nms_select_plain`` is the same function in plain PyTorch: the CPU path and
+the reference that the kernel is held against on the card.
+
+Each of the D steps takes the first-index maximum of the remaining scores,
+emits it only if it is > 0, and then zeroes it and every candidate whose IoU
+with it exceeds the threshold. The IoU denominator is clamped at 1e-8.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import _build
+
+# Shared memory holds 6 float planes of K values; 227 KB per block on Hopper.
+MAX_CANDIDATES = 8192
+
+
+def nms_select_plain(scores: torch.Tensor, boxes: torch.Tensor,
+                     iou_threshold: float, max_detections: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(scores (B, K) f32, boxes (B, K, 4) f32) -> (scores (B, D) f32, 0
+    where invalid; idx (B, D) int32, 0 where invalid)."""
+    k = scores.shape[1]
+    remaining = scores.clamp_min(0.0)
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    area = (x2 - x1).clamp_min(0.0) * (y2 - y1).clamp_min(0.0)
+    iota = torch.arange(k, device=scores.device)
+    out_s, out_i = [], []
+    for _ in range(max_detections):
+        best = remaining.amax(dim=1, keepdim=True)
+        valid = best > 0.0
+        idx = torch.where(remaining == best, iota, k).amin(dim=1, keepdim=True)
+        bx1, by1, bx2, by2 = (c.gather(1, idx) for c in (x1, y1, x2, y2))
+        iw = torch.minimum(bx2, x2) - torch.maximum(bx1, x1)
+        ih = torch.minimum(by2, y2) - torch.maximum(by1, y1)
+        inter = iw.clamp_min(0.0) * ih.clamp_min(0.0)
+        b_area = (bx2 - bx1).clamp_min(0.0) * (by2 - by1).clamp_min(0.0)
+        iou = inter / (area + b_area - inter).clamp_min(1e-8)
+        suppress = (iou > iou_threshold) | (iota == idx)
+        remaining = remaining.masked_fill(valid & suppress, 0.0)
+        out_s.append(torch.where(valid, best, 0.0))
+        out_i.append(torch.where(valid, idx, 0))
+    return torch.cat(out_s, dim=1), torch.cat(out_i, dim=1).to(torch.int32)
+
+
+def nms_select(scores: torch.Tensor, boxes: torch.Tensor,
+               iou_threshold: float, max_detections: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Greedy NMS per image; same contract as ``nms_select_plain``.
+
+    A CPU tensor takes the plain version. A CUDA tensor launches the kernel
+    on the current stream, or raises on what the kernel does not take.
+    ``nms_select.launches`` counts kernel launches."""
+    if scores.device.type == "cpu":
+        return nms_select_plain(scores, boxes, iou_threshold, max_detections)
+    if scores.device.type != "cuda":
+        raise ValueError(f"nms_select: unsupported device {scores.device}")
+    if scores.dtype != torch.float32 or boxes.dtype != torch.float32:
+        raise TypeError(f"nms_select: need float32, got {scores.dtype}, "
+                        f"{boxes.dtype}")
+    if scores.dim() != 2 or tuple(boxes.shape) != (*scores.shape, 4):
+        raise ValueError(f"nms_select: shapes {tuple(scores.shape)}, "
+                         f"{tuple(boxes.shape)}; need (B, K), (B, K, 4)")
+    if boxes.device != scores.device:
+        raise ValueError("nms_select: scores and boxes on different devices")
+    if not (scores.is_contiguous() and boxes.is_contiguous()):
+        raise ValueError("nms_select: inputs must be contiguous")
+    if boxes.data_ptr() % 16:
+        raise ValueError("nms_select: boxes must be 16-byte aligned (float4)")
+    b, k = scores.shape
+    if not 0 < k <= MAX_CANDIDATES or max_detections < 1:
+        raise ValueError(f"nms_select: K={k} (1..{MAX_CANDIDATES}), "
+                         f"D={max_detections} (>= 1)")
+    out_s = torch.empty((b, max_detections), dtype=torch.float32,
+                        device=scores.device)
+    out_i = torch.empty((b, max_detections), dtype=torch.int32,
+                        device=scores.device)
+    lib = _build.load_library()
+    with torch.cuda.device(scores.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.edt_nms_select(scores.data_ptr(), boxes.data_ptr(),
+                                 out_s.data_ptr(), out_i.data_ptr(), b, k,
+                                 max_detections, float(iou_threshold), stream)
+    if err != 0:
+        raise RuntimeError(f"nms_select: kernel launch failed, CUDA error "
+                           f"{err}")
+    nms_select.launches += 1
+    return out_s, out_i
+
+
+nms_select.launches = 0

@@ -1,0 +1,86 @@
+"""Anchor generation on the host with numpy.
+
+Counterpart of ``efficientdet_tpu/ops/anchors.py``, bit-equal to it (the
+JAX module cannot be imported without jax, because its package ``__init__``
+imports jax). Semantics follow the reference's ``models/module.py:145-273``:
+
+  - pyramid levels P3..P7, stride 2^l, base size 2^(l+2)
+  - 9 anchors per cell: ratios {0.5, 1, 2} (major) x scales
+    {2^0, 2^1/3, 2^2/3} (minor)
+  - cell centres at (i + 0.5) * stride
+  - flattened order (y, x, anchor) per level, levels concatenated P3 -> P7,
+    which is the order of the head's NHWC reshape.
+
+Boxes are (x1, y1, x2, y2) in input-image pixels.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Sequence, Tuple
+
+import numpy as np
+
+DEFAULT_PYRAMID_LEVELS: Tuple[int, ...] = (3, 4, 5, 6, 7)
+DEFAULT_RATIOS: Tuple[float, ...] = (0.5, 1.0, 2.0)
+DEFAULT_SCALES: Tuple[float, ...] = (2 ** 0, 2 ** (1.0 / 3.0), 2 ** (2.0 / 3.0))
+
+
+def generate_cell_anchors(base_size: float,
+                          ratios: Sequence[float] = DEFAULT_RATIOS,
+                          scales: Sequence[float] = DEFAULT_SCALES) -> np.ndarray:
+    """(len(ratios)*len(scales), 4) zero-centred anchors for one cell, ratio
+    major / scale minor: w = sqrt(area/ratio), h = w * ratio."""
+    ratios = np.asarray(ratios, dtype=np.float64)
+    scales = np.asarray(scales, dtype=np.float64)
+    ws = base_size * np.tile(scales, len(ratios))
+    areas = ws * ws
+    r = np.repeat(ratios, len(scales))
+    w = np.sqrt(areas / r)
+    h = w * r
+    return np.stack([-w / 2, -h / 2, w / 2, h / 2], axis=1)
+
+
+def shift_anchors(feat_shape: Tuple[int, int], stride: int,
+                  cell_anchors: np.ndarray) -> np.ndarray:
+    """Tile cell anchors across a (H, W) grid; (H*W*A, 4) in (y, x, a) order."""
+    h, w = feat_shape
+    shift_x = (np.arange(w) + 0.5) * stride
+    shift_y = (np.arange(h) + 0.5) * stride
+    sx, sy = np.meshgrid(shift_x, shift_y)
+    shifts = np.stack([sx.ravel(), sy.ravel(), sx.ravel(), sy.ravel()], axis=1)
+    return (cell_anchors[None, :, :] + shifts[:, None, :]).reshape(-1, 4)
+
+
+def feature_shapes(image_size: int,
+                   pyramid_levels: Sequence[int] = DEFAULT_PYRAMID_LEVELS):
+    """Per-level (H, W) = ceil(image_size / 2^l)."""
+    return [((image_size + 2 ** l - 1) // 2 ** l,) * 2 for l in pyramid_levels]
+
+
+@functools.lru_cache(maxsize=64)
+def anchors_for_feature_shapes(
+        shapes: Tuple[Tuple[int, int], ...],
+        pyramid_levels: Tuple[int, ...] = DEFAULT_PYRAMID_LEVELS,
+        ratios: Tuple[float, ...] = DEFAULT_RATIOS,
+        scales: Tuple[float, ...] = DEFAULT_SCALES) -> np.ndarray:
+    """Anchors for explicit per-level (H, W) grids, (A_total, 4) float32,
+    read-only (the cache hands the same array to every caller)."""
+    per_level = []
+    for (fh, fw), level in zip(shapes, pyramid_levels):
+        cell = generate_cell_anchors(2 ** (level + 2), ratios, scales)
+        per_level.append(shift_anchors((fh, fw), 2 ** level, cell))
+    out = np.concatenate(per_level, axis=0).astype(np.float32)
+    out.setflags(write=False)
+    return out
+
+
+def anchors_for_image_size(
+        image_size: int,
+        pyramid_levels: Tuple[int, ...] = DEFAULT_PYRAMID_LEVELS,
+        ratios: Tuple[float, ...] = DEFAULT_RATIOS,
+        scales: Tuple[float, ...] = DEFAULT_SCALES) -> np.ndarray:
+    """All anchors for a square input on the ceil pyramid, P3..P7 order."""
+    shapes = tuple(feature_shapes(image_size, pyramid_levels))
+    return anchors_for_feature_shapes(shapes, tuple(pyramid_levels),
+                                      tuple(ratios), tuple(scales))
