@@ -3,8 +3,9 @@
 Builds the port's kernels from the sources in this checkout, holds each
 kernel against its plain PyTorch version on the card, drives the D0@512
 serving step (``efficientdet_tpu_torch.make_eval_step``, 80 classes, random
-weights from a seed) at batch 1 and 32 with the BiFPN fusion kernels off
-and on, checks the detections, and times the steps and the kernels.
+weights from a seed) at batch 1 and 32 on three paths (plain; BiFPN fusion
+kernels; fused MBConv backbone), checks the detections, and times the steps
+and the kernels.
 
     python3 chip_smoke.py [--profile [--out DIR]]
 
@@ -47,11 +48,15 @@ def card_summary() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def device_ms(fn, iters: int = 20):
+def device_ms(fn, iters: int = 20, traces: int = 3):
     """(device ms, wall ms) per call of ``fn()`` after warm-up. Device ms is
-    the summed duration of the device operations that ``torch.profiler``
-    records; wall ms spans back-to-back calls between CUDA events, and so
-    includes the host's launch overhead wherever that exceeds device time."""
+    the summed duration of the device operations that a ``torch.profiler``
+    trace records, per call, the median of ``traces`` traces: now and then a
+    trace holds fewer device operations than ran (on the card one held
+    none, another a fifth of them), and the median is immune to one such
+    trace. Wall ms spans back-to-back calls between CUDA events, outside
+    the profiler, and so includes the host's launch overhead wherever that
+    exceeds device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(WARMUP):
@@ -59,17 +64,23 @@ def device_ms(fn, iters: int = 20):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-    device_us = sum(e.time_range.end - e.time_range.start
-                    for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
-    check(device_us > 0, "the profiler recorded no device time")
-    return device_us / 1e3 / iters, start.elapsed_time(end) / iters
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    device = []
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        device.append(sum(e.time_range.end - e.time_range.start
+                          for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA))
+    check(max(device) > 0, "the profiler recorded no device time")
+    return statistics.median(device) / 1e3 / iters, \
+        start.elapsed_time(end) / iters
 
 
 def bf16_ulp(x):
@@ -176,6 +187,134 @@ def phase_fusion(torch, dev):
     return err
 
 
+def mbconv_shapes(model_name: str, image_size: int):
+    """(Cin, Ce, K, stride, H) of each expanded MBConv block of the backbone
+    at ``image_size``, in order (the fused path's one launch per block)."""
+    from efficientdet_tpu_torch.models.efficientnet import EfficientNetFeatures
+    h = -(-image_size // 2)  # after the stride-2 stem
+    shapes = []
+    for block in EfficientNetFeatures(model_name, device="meta")._blocks:
+        ba = block.block_args
+        if ba.expand_ratio != 1:
+            cin = ba.input_filters
+            shapes.append((cin, cin * ba.expand_ratio, ba.kernel_size,
+                           ba.stride, h))
+        h = -(-h // ba.stride)
+    return shapes
+
+
+def d0_mbconv_shapes():
+    """D0@512's distinct block shapes with the number of blocks of each."""
+    shapes = mbconv_shapes("efficientnet-b0", IMAGE_SIZE)
+    check(len(shapes) == 15, f"D0 has {len(shapes)} expanded blocks, not 15")
+    return {shape: shapes.count(shape) for shape in shapes}
+
+
+def b6_widest_shape():
+    """efficientnet-b6's widest expansion at D6's input size (1408)."""
+    return max(mbconv_shapes("efficientnet-b6", 1408), key=lambda s: s[1])
+
+
+def mbconv_inputs(torch, gen, batch, shape, dtype):
+    """x (B, H, H, Cin) and the weights of one block, scaled so that the
+    expand and depthwise sums are O(1); ``gen`` is a CUDA generator."""
+    cin, ce, k, _, h = shape
+    dev = gen.device
+
+    def randn(*size):
+        return torch.randn(*size, generator=gen, device=dev)
+
+    def uniform(n):
+        return torch.rand(n, generator=gen, device=dev) + 0.5
+
+    return (randn(batch, h, h, cin).to(dtype), randn(cin, ce) / cin ** 0.5,
+            uniform(ce), randn(ce) * 0.5, randn(k, k, ce) / k, uniform(ce),
+            randn(ce) * 0.1)
+
+
+# bf16 z against the plain version: at most 1 ulp, and at most this share of
+# the elements off at all. Set from readings on an H100 80GB HBM3 at 700 W
+# (0 ulp at every element of every shape): the kernel's f32 expand sums
+# may round y to the other bf16 neighbour where cuBLAS's do not, but a flip
+# moves z by less than 1 ulp and is rare.
+BF16_MAX_ULP = 1.0
+BF16_OFF_SHARE = 1e-5
+
+
+def bf16_agreement(z, want):
+    """(max ulp, elements off, within the limits) of bf16 z against want."""
+    dz = (z.float() - want.float()).abs()
+    max_ulp = (dz / bf16_ulp(want)).max().item()
+    off = int((dz > 0).sum())
+    return max_ulp, off, (max_ulp <= BF16_MAX_ULP
+                          and off <= BF16_OFF_SHARE * dz.numel())
+
+
+def unrounded_plain(mk, prepare, x, we, s0, b0, w_dw, s1, b1, stride):
+    """The plain version without the bf16 round of y before the depthwise:
+    what a kernel that skipped it would give. The bf16 check must reject it."""
+    z, _ = mk._expand_dw_plain(x.float(), *prepare(x, we, s0, b0), w_dw, s1,
+                               b1, stride)
+    return z.to(x.dtype)
+
+
+def phase_mbconv(torch, dev):
+    """The fused MBConv kernel, through both wrappers, against their plain
+    versions at D0@512's 11 block shapes at B = 1 and 32 (the serving path's
+    batches) and efficientnet-b6's widest at B = 2. float32 (TF32 off): z and
+    se_mean within 1e-5, as only the order of f32 sums differs. bf16: z
+    within ``bf16_agreement``'s limits, which the plain version without the
+    bf16 round of y must fail at every case; se_mean within 1e-3 relative
+    (+1e-5). Returns the largest f32 error."""
+    from efficientdet_tpu_torch.kernels import mbconv_kernel as mk
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    cases = [(b, shape) for b in (1, 32) for shape in d0_mbconv_shapes()]
+    cases.append((2, b6_widest_shape()))
+    err = 0.0
+    for batch, shape in cases:
+        stride = shape[3]
+        for dtype in (torch.float32, torch.bfloat16):
+            x, *weights = mbconv_inputs(torch, gen, batch, shape, dtype)
+            for kernel, plain, prepare in (
+                    (mk.fused_expand_dw_flat, mk.fused_expand_dw_flat_plain,
+                     mk._prepare_flat),
+                    (mk.fused_expand_dw, mk.fused_expand_dw_plain,
+                     mk._prepare_v1)):
+                name = f"{kernel.__name__} {shape} B={batch} {dtype}"
+                z, se = kernel(x, *weights, stride=stride)
+                torch.cuda.synchronize()
+                zp, sep = plain(x, *weights, stride=stride)
+                check(z.shape == zp.shape and z.dtype == dtype
+                      and se.shape == sep.shape and se.dtype == torch.float32,
+                      f"{name}: output shapes or dtypes")
+                check(bool(torch.isfinite(z).all()), f"{name}: non-finite z")
+                dse = (se - sep).abs()
+                if dtype == torch.float32:
+                    dz = (z - zp).abs().max().item()
+                    check(dz <= 1e-5 and dse.max().item() <= 1e-5,
+                          f"{name}: f32 z err {dz}, se err "
+                          f"{dse.max().item()}")
+                    err = max(err, dz, dse.max().item())
+                    log(f"{name}: z err {dz:.3g}, se err "
+                        f"{dse.max().item():.3g}")
+                    continue
+                max_ulp, off, ok = bf16_agreement(z, zp)
+                check(ok, f"{name}: z max {max_ulp} ulp, {off} of "
+                      f"{z.numel()} elements off")
+                u_ulp, u_off, u_ok = bf16_agreement(
+                    unrounded_plain(mk, prepare, x, *weights, stride), zp)
+                check(not u_ok, f"{name}: the check cannot tell a kernel "
+                      f"without the bf16 round of y ({u_off} off, max "
+                      f"{u_ulp} ulp)")
+                check(bool((dse <= 1e-3 * sep.abs() + 1e-5).all()),
+                      f"{name}: se_mean err {dse.max().item()}")
+                log(f"{name}: max {max_ulp:.1f} ulp, {off} of {z.numel()} "
+                    f"off (without the y round: {u_off} off, max "
+                    f"{u_ulp:.1f} ulp), se err {dse.max().item():.3g}")
+        log(f"mbconv kernel matches plain at {shape} B={batch}")
+    return err
+
+
 def check_detections(torch, det, batch: int) -> int:
     """Finite, well-formed fixed-shape detections; returns the valid count."""
     scores, classes, boxes, valid = det
@@ -237,11 +376,17 @@ def build_model(torch, cfg, dev, state, dtype, fused):
     return model.eval().to(memory_format=torch.channels_last)
 
 
+# Serving paths: name -> (BiFPN fusion kernels, fused MBConv backbone).
+PATHS = {"plain": (False, False), "fusion": (True, False),
+         "fusedmb": (False, True)}
+
+
 def phase_serving(torch, dev, cfg, state):
-    """The main path: bf16, channels_last, uint8 input, B = 1 and 32, fusion
-    kernels off and on. Launch counts are taken over exactly this phase."""
+    """The main path: bf16, channels_last, uint8 input, B = 1 and 32, on the
+    three paths of ``PATHS``, alternated. Launch counts are taken over
+    exactly this phase."""
     from efficientdet_tpu_torch import make_eval_step
-    from efficientdet_tpu_torch.kernels import fusion
+    from efficientdet_tpu_torch.kernels import fusion, mbconv_kernel
     from efficientdet_tpu_torch.kernels.nms_kernel import nms_select
 
     models = {fused: build_model(torch, cfg, dev, state, torch.bfloat16, fused)
@@ -252,69 +397,107 @@ def phase_serving(torch, dev, cfg, state):
                                dtype=torch.uint8, generator=gen).to(dev)
               for b in STEPS}
 
-    counters = (nms_select, fusion.fuse_topdown, fusion.fuse_bottomup)
+    counters = (nms_select, fusion.fuse_topdown, fusion.fuse_bottomup,
+                mbconv_kernel.fused_expand_dw_flat,
+                mbconv_kernel.fused_expand_dw)
     for fn in counters:
         fn.launches = 0
-    steps = {False: 0, True: 0}
+    steps = dict.fromkeys(PATHS, 0)
     kept_total = 0
-    eval_steps = {fused: make_eval_step(m, cfg) for fused, m in models.items()}
+    eval_steps = {name: make_eval_step(models[fusion_on], cfg,
+                                       fused_backbone=fused_backbone)
+                  for name, (fusion_on, fused_backbone) in PATHS.items()}
     for b, n in STEPS.items():
-        times = {False: [], True: []}
-        for fused, step in eval_steps.items():
+        times = {name: [] for name in PATHS}
+        for name, step in eval_steps.items():
             for _ in range(WARMUP):
                 step(images[b])
-            steps[fused] += WARMUP
-        # Alternate the two paths (off, on, on, off, ...) so that drift of
-        # the shared host does not favour either.
+            steps[name] += WARMUP
+        # Alternate the paths (forward, then backward order, ...) so that
+        # drift of the shared host does not favour any.
         for r in range(ROUNDS):
-            for fused in ((False, True) if r % 2 == 0 else (True, False)):
+            for name in list(PATHS)[::1 if r % 2 == 0 else -1]:
                 for _ in range(n // ROUNDS):
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
-                    det = eval_steps[fused](images[b])
+                    det = eval_steps[name](images[b])
                     torch.cuda.synchronize()
-                    times[fused].append((time.perf_counter() - t0) * 1e3)
-                    steps[fused] += 1
+                    times[name].append((time.perf_counter() - t0) * 1e3)
+                    steps[name] += 1
                 kept_total += check_detections(torch, det, b)
-        for fused, ts in times.items():
+        for name, ts in times.items():
             q1, ms, q3 = statistics.quantiles(ts, n=4)
-            log(f"serving D0@512 bf16 fusion={'on' if fused else 'off'} "
-                f"B={b}: median {ms:.3f} ms/step (quartiles {q1:.3f}, "
-                f"{q3:.3f}; {len(ts)} steps), {b / ms * 1e3:.1f} img/s")
+            log(f"serving D0@512 bf16 {name} B={b}: median {ms:.3f} ms/step "
+                f"(quartiles {q1:.3f}, {q3:.3f}; {len(ts)} steps), "
+                f"{b / ms * 1e3:.1f} img/s")
     launches = {fn.__name__: fn.launches for fn in counters}
-    total = steps[False] + steps[True]
+    total = sum(steps.values())
     check(launches["nms_select"] == total,
           f"nms launches {launches['nms_select']} != steps {total}")
-    check(launches["fuse_topdown"] == 8 * steps[True]
-          and launches["fuse_bottomup"] == 6 * steps[True],
-          f"fusion launches {launches} for {steps[True]} fused steps")
+    check(launches["fuse_topdown"] == 8 * steps["fusion"]
+          and launches["fuse_bottomup"] == 6 * steps["fusion"],
+          f"fusion launches {launches} for {steps['fusion']} fusion steps")
+    check(launches["fused_expand_dw_flat"] == 15 * steps["fusedmb"]
+          and launches["fused_expand_dw"] == 0,
+          f"mbconv launches {launches} for {steps['fusedmb']} fused-backbone "
+          "steps")
     check(kept_total > 0, "no detections at all")
-    log(f"launches over the serving phase ({total} steps, {steps[True]} "
-        f"with fusion): {launches}")
+    log(f"launches over the serving phase ({total} steps: {steps}): "
+        f"{launches}")
     return launches
 
 
 def phase_f32_parity(torch, dev, cfg, state):
-    """float32, TF32 off: the kernel path (fusion on, CUDA NMS) against the
-    same weights on the plain path (plain BiFPN nodes, plain NMS)."""
+    """float32, TF32 off, the same weights: the fusion-kernel path and the
+    fused-backbone path each against the plain path (plain BiFPN nodes, the
+    module backbone), and the CUDA NMS against the plain NMS on the model's
+    candidates."""
+    from efficientdet_tpu_torch import fused_backbone_forward
     from efficientdet_tpu_torch.kernels.nms_kernel import (nms_select,
                                                            nms_select_plain)
+    from efficientdet_tpu_torch.models import postprocess_from_scores
     from efficientdet_tpu_torch.ops.nms import nms_candidates
     from efficientdet_tpu_torch.train import maybe_normalize_images
 
-    out = {}
     gen = torch.Generator().manual_seed(SEED + 3)
     images = torch.randint(0, 256, (4, IMAGE_SIZE, IMAGE_SIZE, 3),
                            dtype=torch.uint8, generator=gen).to(dev)
-    for fused in (False, True):
-        model = build_model(torch, cfg, dev, state, torch.float32, fused)
-        with torch.inference_mode():
-            out[fused] = model.serving_forward(maybe_normalize_images(images))
-    err = (out[True][0] - out[False][0]).abs().max().item()
+    models = {fused: build_model(torch, cfg, dev, state, torch.float32, fused)
+              for fused in (False, True)}
+    plain = models[False]
+    with torch.inference_mode():
+        x = maybe_normalize_images(images)
+        out = {"plain": plain.serving_forward(x),
+               "fusion": models[True].serving_forward(x),
+               "fusedmb": plain.serving_from_features(
+                   fused_backbone_forward(plain.backbone, x, torch.float32))}
+    err = (out["fusion"][0] - out["plain"][0]).abs().max().item()
     check(err <= 1e-5, f"f32 serving scores differ by {err}")
     log(f"f32 serving scores, fusion kernels vs plain nodes: max diff {err:.3g}")
+
+    # The fused backbone differs from cuDNN's convolutions only in the order
+    # of f32 sums (~1e-6 relative per layer); over 16 blocks, the BiFPN and
+    # the head that stays far below 1e-4 in a sigmoid score.
+    err = (out["fusedmb"][0] - out["plain"][0]).abs().max().item()
+    check(err <= 1e-4, f"f32 serving scores, fused backbone: differ by {err}")
     with torch.inference_mode():
-        top_s, top_b, _ = nms_candidates(*out[True], model.anchors,
+        det = {name: postprocess_from_scores(*out[name], plain.anchors, cfg)
+               for name in ("plain", "fusedmb")}
+    got, want = det["fusedmb"], det["plain"]
+    check(torch.equal(got.valid, want.valid)
+          and torch.equal(got.classes, want.classes),
+          "f32 detections of the fused backbone differ from the plain path's")
+    box_err = (got.boxes - want.boxes).abs().max().item()
+    score_err = (got.scores - want.scores).abs().max().item()
+    check(score_err <= 1e-4 and box_err <= 1e-2,
+          f"f32 detections, fused backbone: scores {score_err}, boxes "
+          f"{box_err}")
+    log(f"f32 serving, fused backbone vs module backbone: scores max diff "
+        f"{err:.3g}; detections identical ({int(want.valid.sum())} kept), "
+        f"scores within {score_err:.3g}, boxes within {box_err:.3g} px")
+
+    with torch.inference_mode():
+        top_s, top_b, _ = nms_candidates(*out["fusion"], plain.anchors,
                                          IMAGE_SIZE, IMAGE_SIZE,
                                          cfg.threshold, cfg.pre_nms_top_k)
         got = nms_select(top_s, top_b, cfg.iou_threshold, cfg.max_detections)
@@ -327,12 +510,33 @@ def phase_f32_parity(torch, dev, cfg, state):
         f"{int((got[0] > 0).sum())} kept")
 
 
+def module_segment(torch, x, we, s0, b0, w_dw, s1, b1, stride):
+    """What the module backbone runs for one fused segment, for timing:
+    cuDNN expand and depthwise convs in x's dtype on channels_last maps,
+    each frozen BN as one pass, SiLU, and the SE mean."""
+    import torch.nn.functional as F
+
+    from efficientdet_tpu_torch.ops.padding import same_padding_1d
+    k = w_dw.shape[0]
+    zero, one = torch.zeros_like(s0), torch.ones_like(s0)
+    y = F.conv2d(x.permute(0, 3, 1, 2), we.t()[:, :, None, None].to(x.dtype))
+    y = F.silu(F.batch_norm(y, zero, one, s0, b0, False, 0.0, 1e-3))
+    lo, hi = same_padding_1d(x.shape[1], k, stride)  # as the module pads
+    y = F.conv2d(F.pad(y, (lo, hi, lo, hi)),
+                 w_dw.permute(2, 0, 1)[:, None].to(x.dtype), stride=stride,
+                 groups=w_dw.shape[2])
+    y = F.silu(F.batch_norm(y, zero, one, s1, b1, False, 0.0, 1e-3))
+    return y, y.mean(dim=(2, 3))
+
+
 def phase_kernel_times(torch, dev):
     """Kernel and plain times at the main path's shapes at B = 32: NMS at
-    K = 1000, D = 100; the fusion nodes of one BiFPN module in bf16, summed.
-    Runs last: once torch.profiler has run, launches in this process are
-    slower, which would skew the serving step's times."""
-    from efficientdet_tpu_torch.kernels import fusion
+    K = 1000, D = 100; the fusion nodes of one BiFPN module in bf16, summed;
+    the fused MBConv kernel at each D0 block shape in bf16, summed over the
+    15 blocks, beside its plain version and the module path's ops. Runs
+    last: once torch.profiler has run, launches in this process are slower,
+    which would skew the serving step's times."""
+    from efficientdet_tpu_torch.kernels import fusion, mbconv_kernel
     from efficientdet_tpu_torch.kernels.nms_kernel import (nms_select,
                                                            nms_select_plain)
     gen = torch.Generator().manual_seed(SEED + 5)
@@ -374,6 +578,28 @@ def phase_kernel_times(torch, dev):
             ms += k_ms
             plain_ms += p_ms
         times[name] = (ms, plain_ms)
+
+    cuda_gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    ms = plain_ms = module_ms = 0.0
+    for shape, blocks in d0_mbconv_shapes().items():
+        args = mbconv_inputs(torch, cuda_gen, 32, shape, torch.bfloat16)
+        stride = shape[3]
+        k_ms, k_wall = device_ms(
+            lambda: mbconv_kernel.fused_expand_dw_flat(*args, stride=stride))
+        p_ms, p_wall = device_ms(
+            lambda: mbconv_kernel.fused_expand_dw_flat_plain(
+                *args, stride=stride), 5)
+        m_ms, m_wall = device_ms(
+            lambda: module_segment(torch, *args, stride=stride))
+        log(f"mbconv_fused {shape} x{blocks} B=32 bf16: kernel {k_ms:.4f} ms "
+            f"device ({k_wall:.4f} wall), plain {p_ms:.4f} ({p_wall:.4f} "
+            f"wall), module ops {m_ms:.4f} ({m_wall:.4f} wall)")
+        ms += blocks * k_ms
+        plain_ms += blocks * p_ms
+        module_ms += blocks * m_ms
+    log(f"mbconv_fused over D0's 15 blocks at B=32 bf16: kernel {ms:.4f} ms "
+        f"device, plain {plain_ms:.4f}, module ops {module_ms:.4f}")
+    times["mbconv_fused"] = (ms, plain_ms)
     return times
 
 
@@ -394,41 +620,48 @@ def busy_ms(events) -> float:
 
 
 def phase_profile(torch, dev, cfg, state, out_dir, steps: int = 5):
-    """Where the serving step's time goes (bf16, fusion kernels on, B = 1
-    and 32): wall ms per step, device busy ms (union of device op
-    intervals in a torch.profiler trace), idle share, device ops per step,
-    and the top ops by device time; full tables go to ``out_dir``."""
+    """Where the serving step's time goes (bf16, B = 1 and 32, on the
+    fusion-kernel and the fused-backbone paths): wall ms per step, device
+    busy ms (union of device op intervals in a torch.profiler trace), idle
+    share, device ops per step, and the top ops by device time; full tables
+    go to ``out_dir``."""
     from torch.profiler import ProfilerActivity, profile
 
     from efficientdet_tpu_torch import make_eval_step
-    step = make_eval_step(
-        build_model(torch, cfg, dev, state, torch.bfloat16, True), cfg)
     gen = torch.Generator().manual_seed(SEED + 6)
-    for b in STEPS:
-        images = torch.randint(0, 256, (b, IMAGE_SIZE, IMAGE_SIZE, 3),
-                               dtype=torch.uint8, generator=gen).to(dev)
-        for _ in range(WARMUP):
-            step(images)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
+    for name in ("fusion", "fusedmb"):
+        fusion_on, fused_backbone = PATHS[name]
+        step = make_eval_step(
+            build_model(torch, cfg, dev, state, torch.bfloat16, fusion_on),
+            cfg, fused_backbone=fused_backbone)
+        for b in STEPS:
+            images = torch.randint(0, 256, (b, IMAGE_SIZE, IMAGE_SIZE, 3),
+                                   dtype=torch.uint8, generator=gen).to(dev)
+            for _ in range(WARMUP):
                 step(images)
             torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / steps
-        ops = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = busy_ms(ops) / steps
-        check(busy > 0, "the profiler recorded no device time")
-        log(f"profile B={b}: wall {wall:.3f} ms/step (profiled), device busy "
-            f"{busy:.3f} ms/step, idle share {1 - busy / wall:.3f}, "
-            f"{len(ops) / steps:.0f} device ops/step")
-        log(prof.key_averages().table(sort_by="cuda_time_total",
-                                      row_limit=20, max_name_column_width=60))
-        os.makedirs(out_dir, exist_ok=True)
-        with open(os.path.join(out_dir, f"profile_b{b}.txt"), "w") as f:
-            f.write(prof.key_averages().table(sort_by="cuda_time_total"))
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    step(images)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / steps
+            ops = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = busy_ms(ops) / steps
+            check(busy > 0, "the profiler recorded no device time")
+            log(f"profile {name} B={b}: wall {wall:.3f} ms/step (profiled), "
+                f"device busy {busy:.3f} ms/step, idle share "
+                f"{1 - busy / wall:.3f}, {len(ops) / steps:.0f} device "
+                "ops/step")
+            log(prof.key_averages().table(sort_by="cuda_time_total",
+                                          row_limit=20,
+                                          max_name_column_width=60))
+            os.makedirs(out_dir, exist_ok=True)
+            with open(os.path.join(out_dir, f"profile_{name}_b{b}.txt"),
+                      "w") as f:
+                f.write(prof.key_averages().table(sort_by="cuda_time_total"))
 
 
 def main() -> int:
@@ -468,6 +701,9 @@ def main() -> int:
     t0 = time.perf_counter()
     fusion_err = phase_fusion(torch, dev)
     log(f"fusion phase (Triton compiles included) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mbconv_err = phase_mbconv(torch, dev)
+    log(f"mbconv phase {time.perf_counter() - t0:.1f} s")
     from efficientdet_tpu_torch import DetectorConfig
     cfg = DetectorConfig(num_classes=80, network="efficientdet-d0").resolve()
     state = seeded_state(torch, cfg, dev)
@@ -497,6 +733,15 @@ def main() -> int:
          "max_abs_err": fusion_err["fuse_bottomup"],
          "ms": times["fuse_bottomup"][0],
          "plain_ms": times["fuse_bottomup"][1]},
+        {"name": "mbconv_fused", "route": "cuda",
+         "source": "efficientdet_tpu_torch/csrc/mbconv_fused.cu",
+         "replaces": "efficientdet_tpu/kernels/mbconv_kernel.py:260, "
+                     "efficientdet_tpu/kernels/mbconv_kernel.py:336",
+         "launches": launches["fused_expand_dw_flat"]
+                     + launches["fused_expand_dw"],
+         "max_abs_err": mbconv_err,
+         "ms": times["mbconv_fused"][0],
+         "plain_ms": times["mbconv_fused"][1]},
     ]
     log(card)
     log(json.dumps({"kernels": kernels}))

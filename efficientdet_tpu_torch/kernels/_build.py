@@ -1,12 +1,13 @@
 """Build and load the package's CUDA C++ kernels.
 
 The sources in ``efficientdet_tpu_torch/csrc/`` are compiled with ``nvcc``
-for ``sm_90a`` into one shared library with a plain C interface, at first
-use, into ``efficientdet_tpu_torch/_build/`` (listed in ``.gitignore``). The
-library's name carries a hash of the sources and flags, so an edited source
-is rebuilt and a stale library is never loaded. The library is bound with
-``ctypes``: each pointer and the stream go as ``c_void_p``, and each entry
-point returns ``cudaGetLastError()`` after its launch.
+for ``sm_90a``, one ``nvcc`` per source, all started together, and linked
+into one shared library with a plain C interface, at first use, into
+``efficientdet_tpu_torch/_build/`` (listed in ``.gitignore``). The library's
+name carries a hash of the sources and flags, so an edited source is rebuilt
+and a stale library is never loaded. The library is bound with ``ctypes``:
+each pointer and the stream go as ``c_void_p``, and each entry point returns
+``cudaGetLastError()`` after its launches.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -24,7 +26,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 
 def _nvcc() -> str:
@@ -52,26 +54,45 @@ def library_path() -> Path:
     return BUILD_DIR / f"libedt_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> str:
+    """Runs the commands at once and waits for all; returns their output, or
+    raises with the stderr of those that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    outputs = [proc.communicate() for proc in procs]
+    failed = [f"nvcc failed ({' '.join(cmd)}):\n{stderr}"
+              for cmd, proc, (_, stderr) in zip(cmds, procs, outputs)
+              if proc.returncode != 0]
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(f"{' '.join(cmd)}\n{stdout}{stderr}"
+                   for cmd, (stdout, stderr) in zip(cmds, outputs))
+
+
 def build() -> Path:
     """Compile the sources unless the library for them exists; returns its
-    path. ``nvcc``'s output (``-Xptxas=-v``: registers, shared memory and
-    spills per kernel) is kept beside it as ``.log``. Raises with nvcc's
-    stderr if the build fails."""
+    path. Each source is compiled by its own ``nvcc``, all started together,
+    and the objects are linked with ``nvcc -shared``. ``nvcc``'s output
+    (``-Xptxas=-v``: registers, shared memory and spills per kernel) is kept
+    beside the library as ``.log``. Raises with nvcc's stderr if a step
+    fails."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(exist_ok=True)
     cu, _ = _sources()
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+    nvcc = _nvcc()
     start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{proc.stderr}")
-    out.with_suffix(".log").write_text(
-        f"{' '.join(cmd)}\n{time.perf_counter() - start:.1f} s\n"
-        f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objects = [os.path.join(tmp, f"{src.stem}.o") for src in cu]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                        for obj, src in zip(objects, cu)])
+        lib = os.path.join(tmp, out.name)
+        log += _run_all([[nvcc, "-shared", "-o", lib, *objects]])
+        out.with_suffix(".log").write_text(
+            f"{time.perf_counter() - start:.1f} s\n{log}")
+        os.replace(lib, out)
     return out
 
 
@@ -84,4 +105,8 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
         ctypes.c_void_p]
     lib.edt_nms_select.restype = ctypes.c_int
+    lib.edt_mbconv_fused.argtypes = ([ctypes.c_void_p] * 10
+                                     + [ctypes.c_int] * 14
+                                     + [ctypes.c_void_p])
+    lib.edt_mbconv_fused.restype = ctypes.c_int
     return lib

@@ -1,9 +1,9 @@
 """Serving step: on-device uint8 normalization, forward, NMS tail.
 
 Counterpart of the eval step of ``efficientdet_tpu/train/train_lib.py``
-(``maybe_normalize_images``, ``make_eval_step``). Training (losses, the
-backward, the optimizer) comes with the training path; the fused-backbone
-serving variant comes with its kernel.
+(``maybe_normalize_images``, ``make_eval_step``, with its fused-backbone
+variant). Training (losses, the backward, the optimizer) comes with the
+training path.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import torch
 from efficientdet_tpu.config import DetectorConfig
 
 from ..models.detector import EfficientDet, postprocess_from_scores
+from ..models.fused_serving import fused_backbone_forward
 from ..ops.nms import Detections
 
 # ImageNet statistics of efficientdet_tpu/data/transforms.py.
@@ -43,16 +44,25 @@ def maybe_normalize_images(images: torch.Tensor) -> torch.Tensor:
     return (images.float() * (1.0 / 255.0) - mean) / std
 
 
-def make_eval_step(model: EfficientDet, cfg: DetectorConfig
+def make_eval_step(model: EfficientDet, cfg: DetectorConfig,
+                   fused_backbone: bool = False
                    ) -> Callable[[torch.Tensor], Detections]:
     """(images (B, H, W, 3), uint8 or normalized float) -> Detections, on the
-    images' device, without autograd."""
+    images' device, without autograd.
+
+    ``fused_backbone=True`` runs the backbone through the fused MBConv kernel
+    (``models/fused_serving.py``), reading the same weights; it needs frozen
+    BN (eval) and an even input size."""
     cfg = cfg.resolve()
 
     @torch.inference_mode()
     def eval_step(images: torch.Tensor) -> Detections:
-        scores, classes, box_deltas = model.serving_forward(
-            maybe_normalize_images(images))
+        images = maybe_normalize_images(images)
+        if fused_backbone:
+            scores, classes, box_deltas = model.serving_from_features(
+                fused_backbone_forward(model.backbone, images, model.dtype))
+        else:
+            scores, classes, box_deltas = model.serving_forward(images)
         return postprocess_from_scores(scores, classes, box_deltas,
                                        model.anchors, cfg)
 

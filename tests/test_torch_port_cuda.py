@@ -14,8 +14,16 @@ import pytest
 import torch
 
 from efficientdet_tpu_torch import DetectorConfig, EfficientDet, make_eval_step
-from efficientdet_tpu_torch.kernels import fusion
+from efficientdet_tpu_torch.kernels import fusion, mbconv_kernel
 from efficientdet_tpu_torch.kernels.nms_kernel import nms_select
+
+MBCONV = {"v1": (mbconv_kernel.fused_expand_dw,
+                 mbconv_kernel.fused_expand_dw_plain),
+          "flat": (mbconv_kernel.fused_expand_dw_flat,
+                   mbconv_kernel.fused_expand_dw_flat_plain)}
+SMALL = dict(num_classes=4, network="efficientdet-d0", input_size=128,
+             W_bifpn=16, D_bifpn=1, D_class=1, head_stacked_convs=1,
+             head_feat_channels=16)
 
 pytestmark = pytest.mark.cuda
 
@@ -51,9 +59,7 @@ def test_fusion_kernels_reject_non_channels_last(cuda):
 def test_small_serving_step_launches_kernels(cuda):
     """The small detector's serving step on the card, fusion on: one NMS
     launch and 7 fusion launches (4 top-down, 3 bottom-up) per step."""
-    cfg = DetectorConfig(num_classes=4, network="efficientdet-d0",
-                         input_size=128, W_bifpn=16, D_bifpn=1, D_class=1,
-                         head_stacked_convs=1, head_feat_channels=16)
+    cfg = DetectorConfig(**SMALL)
     model = EfficientDet(cfg, dtype=torch.bfloat16, use_fusion_kernels=True,
                          device=cuda,
                          generator=torch.Generator().manual_seed(0))
@@ -65,5 +71,74 @@ def test_small_serving_step_launches_kernels(cuda):
     torch.cuda.synchronize()
     assert (nms_select.launches - counts[0], fusion.fuse_topdown.launches
             - counts[1], fusion.fuse_bottomup.launches - counts[2]) == (1, 4, 3)
+    assert det.scores.shape == (2, 100)
+    assert torch.isfinite(det.boxes).all()
+
+
+def _mbconv_args(device, b=2, h=12, w=10, cin=16, ce=96, k=3, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    args = [torch.randn(b, h, w, cin, generator=gen),
+            torch.randn(cin, ce, generator=gen) / cin ** 0.5,
+            torch.rand(ce, generator=gen) + 0.5,
+            torch.randn(ce, generator=gen) * 0.1,
+            torch.randn(k, k, ce, generator=gen) / k,
+            torch.rand(ce, generator=gen) + 0.5,
+            torch.randn(ce, generator=gen) * 0.1]
+    return [a.to(device) for a in args]
+
+
+@pytest.mark.parametrize("impl", ["v1", "flat"])
+def test_mbconv_kernel_rejects_bad_input(cuda, impl):
+    """Wrong device, dtype, layout, and shapes outside efficientnet-b0..b6."""
+    kernel, _ = MBCONV[impl]
+    x, *weights = _mbconv_args(cuda)
+    with pytest.raises(ValueError, match="different devices"):
+        kernel(x, *weights[:-1], weights[-1].cpu(), stride=1)
+    with pytest.raises(TypeError):
+        kernel(x.half(), *weights, stride=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel(x.transpose(1, 2).contiguous().transpose(1, 2), *weights,
+               stride=1)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        kernel(x, *weights, stride=3)
+    for cin, ce, k in ((8, 96, 3), (16, 3504, 3), (16, 104, 3), (16, 96, 7),
+                       (20, 96, 3)):
+        x2, *w2 = _mbconv_args(cuda, cin=cin, ce=ce, k=k)
+        with pytest.raises(ValueError, match="unsupported shape"):
+            kernel(x2, *w2, stride=1)
+
+
+@pytest.mark.parametrize("impl", ["v1", "flat"])
+@pytest.mark.parametrize("k,s", [(3, 1), (3, 2), (5, 1), (5, 2)])
+def test_mbconv_kernel_counts_and_matches_plain(cuda, impl, k, s):
+    """One launch per call; float32 within 1e-5 of the plain version at a
+    small odd-sized map with three channel tiles (Ce = 144)."""
+    kernel, plain = MBCONV[impl]
+    args = _mbconv_args(cuda, h=13, w=11, cin=24, ce=144, k=k)
+    before = kernel.launches
+    z, se = kernel(*args, stride=s)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    zp, sep = plain(*args, stride=s)
+    assert z.shape == zp.shape == (2, -(-13 // s), -(-11 // s), 144)
+    assert (z - zp).abs().max().item() <= 1e-5
+    assert (se - sep).abs().max().item() <= 1e-5
+
+
+def test_small_fused_backbone_step_launches_kernel(cuda):
+    """The small detector's serving step with the fused backbone: 15
+    launches of the flat kernel (blocks 1..15), none of v1, one NMS."""
+    cfg = DetectorConfig(**SMALL)
+    model = EfficientDet(cfg, dtype=torch.bfloat16, device=cuda,
+                         generator=torch.Generator().manual_seed(0))
+    model = model.eval().to(memory_format=torch.channels_last)
+    counts = (mbconv_kernel.fused_expand_dw_flat.launches,
+              mbconv_kernel.fused_expand_dw.launches, nms_select.launches)
+    det = make_eval_step(model, cfg, fused_backbone=True)(torch.randint(
+        0, 256, (2, 128, 128, 3), dtype=torch.uint8, device=cuda))
+    torch.cuda.synchronize()
+    assert (mbconv_kernel.fused_expand_dw_flat.launches - counts[0],
+            mbconv_kernel.fused_expand_dw.launches - counts[1],
+            nms_select.launches - counts[2]) == (15, 0, 1)
     assert det.scores.shape == (2, 100)
     assert torch.isfinite(det.boxes).all()

@@ -279,10 +279,10 @@ from efficientdet_tpu_torch import DetectorConfig, EfficientDet, make_eval_step
 cfg = DetectorConfig(num_classes=4, network="efficientdet-d0", input_size=128,
                      W_bifpn=16, D_bifpn=1, D_class=1, head_stacked_convs=1,
                      head_feat_channels=16)
-for fusion in (False, True):
+for fusion, fused_backbone in ((False, False), (True, False), (False, True)):
     model = EfficientDet(cfg, use_fusion_kernels=fusion,
                          generator=torch.Generator().manual_seed(0)).eval()
-    det = make_eval_step(model, cfg)(
+    det = make_eval_step(model, cfg, fused_backbone=fused_backbone)(
         torch.randint(0, 256, (2, 128, 128, 3), dtype=torch.uint8))
     assert det.scores.shape == (2, 100) and bool(det.valid.any())
 print("NO_JAX_OK")
@@ -291,7 +291,8 @@ print("NO_JAX_OK")
 
 def test_port_runs_with_jax_blocked():
     """The port imports neither jax nor flax: with both blocked, it builds
-    and runs the CPU slice."""
+    and runs the CPU slice, with the fusion kernels and with the fused
+    MBConv backbone."""
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
