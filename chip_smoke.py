@@ -4,12 +4,14 @@ Builds the port's kernels from the sources in this checkout, holds each
 kernel against its plain PyTorch version on the card, drives the D0@512
 serving step (``efficientdet_tpu_torch.make_eval_step``, 80 classes, random
 weights from a seed) at batch 1 and 32 on three paths (plain; BiFPN fusion
-kernels; fused MBConv backbone), checks the detections, and times the steps
-and the kernels.
+kernels; fused MBConv backbone), checks the detections, drives the D0@512
+bf16 training step (``make_train_step``: timed at batch 64, overfitting a
+batch of 8, the focal backward, the BatchNorm modes, ``remat``), and times
+the steps and the kernels.
 
     python3 chip_smoke.py [--profile [--out DIR]]
 
-With ``--profile`` it also traces the bf16 serving step with
+With ``--profile`` it also traces the bf16 serving and train steps with
 ``torch.profiler`` and prints where the device time goes.
 
 Exits non-zero without a CUDA card, outside a checkout of the repository,
@@ -51,10 +53,10 @@ def card_summary() -> str:
 def device_ms(fn, iters: int = 20, traces: int = 3):
     """(device ms, wall ms) per call of ``fn()`` after warm-up. Device ms is
     the summed duration of the device operations that a ``torch.profiler``
-    trace records, per call, the median of ``traces`` traces: now and then a
-    trace holds fewer device operations than ran (on the card one held
-    none, another a fifth of them), and the median is immune to one such
-    trace. Wall ms spans back-to-back calls between CUDA events, outside
+    trace records, per call, the median of those of ``traces`` traces that
+    hold any: now and then a trace holds fewer device operations than ran
+    (on the card one held none, another a fifth of them; at times two of
+    three held none), and the median is immune to one such trace. Wall ms spans back-to-back calls between CUDA events, outside
     the profiler, and so includes the host's launch overhead wherever that
     exceeds device time."""
     import torch
@@ -78,7 +80,9 @@ def device_ms(fn, iters: int = 20, traces: int = 3):
         device.append(sum(e.time_range.end - e.time_range.start
                           for e in prof.events()
                           if e.device_type == torch.autograd.DeviceType.CUDA))
-    check(max(device) > 0, "the profiler recorded no device time")
+    # A trace that recorded no device operation at all says nothing.
+    device = [d for d in device if d > 0]
+    check(bool(device), "the profiler recorded no device time")
     return statistics.median(device) / 1e3 / iters, \
         start.elapsed_time(end) / iters
 
@@ -510,6 +514,285 @@ def phase_f32_parity(torch, dev, cfg, state):
         f"{int((got[0] > 0).sum())} kept")
 
 
+TRAIN_BATCH = 64          # bench.py's train batch
+TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+OVERFIT_BATCH, OVERFIT_STEPS = 8, 150
+
+
+def build_train_model(torch, cfg, dev, state, remat=False, fused=False):
+    """D0@512 for training from ``state``: bf16 compute, float32
+    parameters, channels_last, training mode."""
+    from efficientdet_tpu_torch import EfficientDet
+    model = EfficientDet(cfg, dtype=torch.bfloat16, use_fusion_kernels=fused,
+                         remat=remat, device=dev)
+    model.load_state_dict(state, strict=True)
+    return model.train().to(memory_format=torch.channels_last)
+
+
+def synthetic_batch(torch, dev, batch: int, seed: int):
+    """uint8 ``SyntheticDetection`` images (512 px, up to 8 objects of 80
+    classes) and their annotations padded to 100 boxes, on the card."""
+    from efficientdet_tpu_torch.data import (SyntheticDetection, collate,
+                                             to_device)
+    ds = SyntheticDetection(length=batch, image_size=IMAGE_SIZE,
+                            num_classes=80, max_objects=8, seed=seed)
+    return to_device(collate([ds[i] for i in range(batch)], max_boxes=100,
+                             uint8_images=True), dev)
+
+
+def level_grads(torch, model, cfg, batch, seed):
+    """(loss, parameter gradients) of one training forward, without an
+    update, with the drop-connect generator of step 0 of ``seed``."""
+    from efficientdet_tpu_torch.models import (anchor_levels_for_model,
+                                               detection_loss_from_level_logits)
+    from efficientdet_tpu_torch.train.train_lib import (maybe_normalize_images,
+                                                        step_generator)
+    images = maybe_normalize_images(batch["images"])
+    cls_l, reg_l = model.train_forward_levels(
+        images, step_generator(seed, 0, images.device))
+    cls_loss, reg_loss = detection_loss_from_level_logits(
+        cls_l, reg_l, anchor_levels_for_model(model), batch["annotations"],
+        cfg)
+    loss = cls_loss + reg_loss
+    return loss.detach(), torch.autograd.grad(loss, list(model.parameters()))
+
+
+def check_focal_backward(torch, dev, levels, batch):
+    """The focal sum's analytic backward against plain autograd of the same
+    chain, at the training batch's level shapes (B = 64, 80 classes), with
+    its matches and a per-image upstream gradient: f32 within 1e-5
+    relative (+1e-12), bf16 within 1 ulp. Returns the largest f32 error
+    relative to the largest gradient."""
+    from efficientdet_tpu_torch.ops import losses
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    b = batch["annotations"].shape[0]
+    g = torch.rand(b, generator=gen, device=dev) + 0.5
+    worst = 0.0
+    for anchors in levels:
+        m = losses._match_anchors(anchors, batch["annotations"], 80)
+        args = (m.assigned_label, m.positive, m.attend, 0.25, 2.0)
+        x32 = torch.randn(b, anchors.shape[0], 80, generator=gen,
+                          device=dev) * 3 - 2
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype).requires_grad_()
+            got, = torch.autograd.grad(
+                losses._FocalClsSum.apply(x, *args), x, g)
+            want, = torch.autograd.grad(
+                losses._focal_cls_sum_plain(x, *args), x, g)
+            check(got.dtype == dtype, f"focal grad dtype {got.dtype}")
+            diff = (got.float() - want.float()).abs()
+            if dtype == torch.float32:
+                ok = bool((diff <= 1e-5 * want.abs() + 1e-12).all())
+                worst = max(worst, (diff.max() / want.abs().max()).item())
+                check(ok, f"focal backward f32 at A={anchors.shape[0]}: "
+                      f"max diff {diff.max().item()}")
+            else:
+                ulps = (diff / bf16_ulp(want)).max().item()
+                check(ulps <= 1.0, f"focal backward bf16 at "
+                      f"A={anchors.shape[0]}: {ulps} ulp")
+            del x, got, want, diff
+        log(f"focal backward A={anchors.shape[0]} B={b}: matches plain "
+            f"autograd in f32 and bf16 ({int(m.num_positive.sum())} "
+            "positives)")
+    return worst
+
+
+def train_losses(torch, model, cfg, batch, lr, steps):
+    """(losses, grad norms) of ``steps`` train steps of ``model`` on one
+    fixed batch at learning rate ``lr``; every value must be finite."""
+    import numpy as np
+
+    from efficientdet_tpu_torch import (OptimizerConfig, create_train_state,
+                                        make_train_step)
+    train_state = create_train_state(model, OptimizerConfig(learning_rate=lr))
+    step = make_train_step(model, cfg)
+    metrics = [step(train_state, batch, SEED) for _ in range(steps)]
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    check(np.isfinite(losses).all() and np.isfinite(norms).all(),
+          f"non-finite losses {losses} or grad norms {norms}")
+    check(train_state.step == steps, "step count")
+    return losses, norms
+
+
+def time_train_steps(torch, dev, cfg, state, batch):
+    """Median ms/step (with quartiles) and peak memory of the bf16 frozen-BN
+    train step at ``batch``'s size, between CUDA events, after warm-up."""
+    import numpy as np
+
+    from efficientdet_tpu_torch import create_train_state, make_train_step
+    model = build_train_model(torch, cfg, dev, state)
+    train_state = create_train_state(model)
+    step = make_train_step(model, cfg)
+    metrics = [step(train_state, batch, SEED) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+              for _ in range(TRAIN_STEPS)]
+    for start, end in events:
+        start.record()
+        metrics.append(step(train_state, batch, SEED))
+        end.record()
+    torch.cuda.synchronize()
+    times = [s.elapsed_time(e) for s, e in events]
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    q1, ms, q3 = statistics.quantiles(times, n=4)
+    values = {k: [float(m[k]) for m in metrics] for k in metrics[0]}
+    check(all(np.isfinite(v).all() for v in values.values()),
+          f"non-finite training metrics {values}")
+    b = batch["images"].shape[0]
+    log(f"train D0@512 bf16 frozen BN B={b}: median {ms:.3f} ms/step "
+        f"(quartiles {q1:.3f}, {q3:.3f}; {TRAIN_STEPS} steps after "
+        f"{TRAIN_WARMUP} warm-up), {b / ms * 1e3:.1f} img/s, peak memory "
+        f"{peak:.2f} GiB; losses {values['loss'][0]:.4f} -> "
+        f"{values['loss'][-1]:.4f}, grad_norm {values['grad_norm'][-1]:.4f}")
+    return {"ms": ms, "img_s": b / ms * 1e3, "peak_gib": peak}
+
+
+def check_overfit(torch, dev, cfg, batch):
+    """Overfitting one fixed batch, as ``tests/test_train.py`` does: the
+    JAX package's initializer (identity BN statistics), frozen BN, AdamW at
+    lr 1e-3; the best of the last 5 losses must fall below 0.6 x the first.
+    Not from the calibrated weights: there a step of 1e-3 on every weight
+    throws the loss to 10^3 (and 1e-4 still diverges). Its dynamics are
+    the JAX package's: both spike alike in the first 30 steps (grad norm
+    0.1 -> 10^2-10^3) and get below 0.6 x only after ~90 steps at this
+    size, hence ``OVERFIT_STEPS``."""
+    from efficientdet_tpu_torch import EfficientDet
+    fresh = EfficientDet(cfg, device=dev,
+                         generator=torch.Generator().manual_seed(SEED))
+    losses, _ = train_losses(
+        torch, build_train_model(torch, cfg, dev, fresh.state_dict()), cfg,
+        batch, 1e-3, OVERFIT_STEPS)
+    best = min(losses[-5:])
+    check(best < 0.6 * losses[0], f"overfit: best of the last 5 losses "
+          f"{best} not below 0.6 x the first {losses[0]}")
+    log(f"overfit B={batch['images'].shape[0]} lr 1e-3, {OVERFIT_STEPS} "
+        f"steps: loss {losses[0]:.4f} -> best of the last 5 {best:.4f} "
+        f"({best / losses[0]:.3f} of the first; after 30 steps "
+        f"{min(losses[25:30]):.4f})")
+
+
+def check_bn_modes(torch, dev, cfg, state, batch):
+    """One ``train``-mode step moves every BN's running statistics by flax's
+    rule, ``0.99 old + 0.01 stat`` with the biased variance, against a
+    recomputation of each layer's input statistics by another reduction
+    (``torch.var_mean``, two-pass), so within float32 rounding of the two
+    orders; one ``frozen`` step leaves them bit-equal."""
+    import dataclasses
+
+    from efficientdet_tpu_torch import create_train_state, make_train_step
+    from efficientdet_tpu_torch.models.layers import BatchNorm
+    tcfg = dataclasses.replace(cfg, bn_mode="train")
+    model = build_train_model(torch, tcfg, dev, state)
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    before = {bn: (bn.running_mean.clone(), bn.running_var.clone())
+              for bn in bns}
+    stats = {}
+
+    def record(bn, args):
+        var, mean = torch.var_mean(args[0].float(), dim=(0, 2, 3),
+                                   correction=0)
+        stats[bn] = (mean, var)
+
+    hooks = [bn.register_forward_pre_hook(record) for bn in bns]
+    make_train_step(model, tcfg)(create_train_state(model), batch, SEED)
+    for h in hooks:
+        h.remove()
+    worst = 0.0
+    for bn in bns:
+        for got, old, new in zip((bn.running_mean, bn.running_var),
+                                 before[bn], stats[bn]):
+            want = 0.99 * old + 0.01 * new
+            err = (got - want).abs().max().item()
+            check(bool(((got - want).abs()
+                        <= 1e-5 * want.abs() + 1e-6).all()),
+                  f"train-mode BN running stats off by {err}")
+            check(not torch.equal(got, old), "train-mode BN did not move")
+            worst = max(worst, err)
+    log(f"bn_mode train: {len(bns)} layers' running stats moved by the flax "
+        f"rule (max diff {worst:.3g} from the recomputation)")
+    del model
+
+    model = build_train_model(torch, cfg, dev, state)
+    make_train_step(model, cfg)(create_train_state(model), batch, SEED)
+    after = model.state_dict()
+    check(all(torch.equal(after[k], state[k]) for k in state
+              if k.endswith(("running_mean", "running_var"))),
+          "frozen BN moved its running statistics")
+    log("bn_mode frozen: running stats bit-equal after a step")
+
+
+def check_remat(torch, dev, cfg, state, batch):
+    """``remat=True`` gives the same loss and the gradients within bf16
+    rounding (1e-2 of each tensor's largest), with drop-connect drawn from
+    the same generator seed."""
+    loss, grads = level_grads(
+        torch, build_train_model(torch, cfg, dev, state), cfg, batch, SEED)
+    r_loss, r_grads = level_grads(
+        torch, build_train_model(torch, cfg, dev, state, remat=True), cfg,
+        batch, SEED)
+    check(torch.equal(loss, r_loss), f"remat loss {r_loss} != {loss}")
+    worst = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                for a, b in zip(r_grads, grads))
+    check(worst <= 1e-2, f"remat gradients differ by {worst} of their max")
+    log(f"remat: loss equal ({float(loss):.6f}), gradients within "
+        f"{worst:.3g} of each tensor's max")
+
+
+def check_fusion_refuses(torch, dev, cfg, state, batch):
+    """The fusion kernels have no backward: a model with them refuses to
+    train on the card, as on the CPU."""
+    from efficientdet_tpu_torch import create_train_state, make_train_step
+    model = build_train_model(torch, cfg, dev, state, fused=True)
+    try:
+        make_train_step(model, cfg)(create_train_state(model), batch, SEED)
+    except RuntimeError as e:
+        check("no backward" in str(e), f"unexpected error: {e}")
+    else:
+        raise AssertionError("a fusion-kernel model trained on the card")
+    log("fusion-kernel model in train mode raises: the kernels refuse "
+        "gradients")
+
+
+def phase_train(torch, dev, cfg, state):
+    """The training step at D0@512, bf16, frozen BN: timed at B = 64 with
+    its peak memory; the focal backward against plain autograd at B = 64's
+    level shapes; overfitting one batch of 8; the BN modes' running
+    statistics; ``remat``; and the fusion kernels refusing gradients. The
+    path runs none of the port's kernels (the JAX training path reaches no
+    ``pallas_call``): their launch counts over it must stay 0."""
+    from efficientdet_tpu_torch.kernels import fusion, mbconv_kernel
+    from efficientdet_tpu_torch.kernels.nms_kernel import nms_select
+    from efficientdet_tpu_torch.models import anchor_levels_for_model
+
+    counters = (nms_select, fusion.fuse_topdown, fusion.fuse_bottomup,
+                mbconv_kernel.fused_expand_dw_flat,
+                mbconv_kernel.fused_expand_dw)
+    for fn in counters:
+        fn.launches = 0
+
+    batch = synthetic_batch(torch, dev, TRAIN_BATCH, SEED + 9)
+    out = time_train_steps(torch, dev, cfg, state, batch)
+    levels = anchor_levels_for_model(build_train_model(torch, cfg, dev, state))
+    out["focal_f32_rel_err"] = check_focal_backward(torch, dev, levels, batch)
+    del batch
+
+    small = synthetic_batch(torch, dev, OVERFIT_BATCH, SEED + 10)
+    check_overfit(torch, dev, cfg, small)
+    check_bn_modes(torch, dev, cfg, state, small)
+    check_remat(torch, dev, cfg, state, small)
+    check_fusion_refuses(torch, dev, cfg, state, small)
+    torch.cuda.synchronize()
+
+    launches = {fn.__name__: fn.launches for fn in counters}
+    check(not any(launches.values()),
+          f"kernels launched on the training path: {launches}")
+    log(f"launches over the training phase: {launches}")
+    return out
+
+
 def module_segment(torch, x, we, s0, b0, w_dw, s1, b1, stride):
     """What the module backbone runs for one fused segment, for timing:
     cuDNN expand and depthwise convs in x's dtype on channels_last maps,
@@ -619,15 +902,40 @@ def busy_ms(events) -> float:
     return total / 1e3  # profiler times are in µs
 
 
-def phase_profile(torch, dev, cfg, state, out_dir, steps: int = 5):
-    """Where the serving step's time goes (bf16, B = 1 and 32, on the
-    fusion-kernel and the fused-backbone paths): wall ms per step, device
-    busy ms (union of device op intervals in a torch.profiler trace), idle
-    share, device ops per step, and the top ops by device time; full tables
-    go to ``out_dir``."""
+def profile_steps(torch, label, run, steps, out_dir):
+    """Trace ``steps`` calls of ``run()`` with torch.profiler: wall ms per
+    step, device busy ms (union of device op intervals), idle share,
+    device ops per step and the top ops by device time; the full table
+    goes to ``out_dir/profile_<label>.txt``."""
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    ops = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = busy_ms(ops) / steps
+    check(busy > 0, "the profiler recorded no device time")
+    log(f"profile {label}: wall {wall:.3f} ms/step (profiled), device busy "
+        f"{busy:.3f} ms/step, idle share {1 - busy / wall:.3f}, "
+        f"{len(ops) / steps:.0f} device ops/step")
+    log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=20,
+                                  max_name_column_width=60))
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"profile_{label}.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="cuda_time_total"))
 
-    from efficientdet_tpu_torch import make_eval_step
+
+def phase_profile(torch, dev, cfg, state, out_dir, steps: int = 5):
+    """Where the time goes: the bf16 serving step at B = 1 and 32 on the
+    fusion-kernel and the fused-backbone paths, and the bf16 frozen-BN
+    train step at B = 64 (``profile_steps``)."""
+    from efficientdet_tpu_torch import (create_train_state, make_eval_step,
+                                        make_train_step)
     gen = torch.Generator().manual_seed(SEED + 6)
     for name in ("fusion", "fusedmb"):
         fusion_on, fused_backbone = PATHS[name]
@@ -639,29 +947,17 @@ def phase_profile(torch, dev, cfg, state, out_dir, steps: int = 5):
                                    dtype=torch.uint8, generator=gen).to(dev)
             for _ in range(WARMUP):
                 step(images)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for _ in range(steps):
-                    step(images)
-                torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) * 1e3 / steps
-            ops = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-            busy = busy_ms(ops) / steps
-            check(busy > 0, "the profiler recorded no device time")
-            log(f"profile {name} B={b}: wall {wall:.3f} ms/step (profiled), "
-                f"device busy {busy:.3f} ms/step, idle share "
-                f"{1 - busy / wall:.3f}, {len(ops) / steps:.0f} device "
-                "ops/step")
-            log(prof.key_averages().table(sort_by="cuda_time_total",
-                                          row_limit=20,
-                                          max_name_column_width=60))
-            os.makedirs(out_dir, exist_ok=True)
-            with open(os.path.join(out_dir, f"profile_{name}_b{b}.txt"),
-                      "w") as f:
-                f.write(prof.key_averages().table(sort_by="cuda_time_total"))
+            profile_steps(torch, f"{name}_b{b}", lambda: step(images), steps,
+                          out_dir)
+
+    model = build_train_model(torch, cfg, dev, state)
+    train_state = create_train_state(model)
+    train_step = make_train_step(model, cfg)
+    batch = synthetic_batch(torch, dev, TRAIN_BATCH, SEED + 9)
+    for _ in range(TRAIN_WARMUP):
+        train_step(train_state, batch, SEED)
+    profile_steps(torch, f"train_b{TRAIN_BATCH}",
+                  lambda: train_step(train_state, batch, SEED), 3, out_dir)
 
 
 def main() -> int:
@@ -669,7 +965,8 @@ def main() -> int:
         description="Smoke test of the PyTorch port on one CUDA card.")
     parser.add_argument(
         "--profile", action="store_true",
-        help="also profile the bf16 serving step (run last, after timing)")
+        help="also profile the bf16 serving and train steps (run last, "
+             "after timing)")
     parser.add_argument("--out", default=os.path.join(HERE, "chiprun_out"),
                         help="directory for the full profile tables")
     args = parser.parse_args()
@@ -709,6 +1006,9 @@ def main() -> int:
     state = seeded_state(torch, cfg, dev)
     launches = phase_serving(torch, dev, cfg, state)
     phase_f32_parity(torch, dev, cfg, state)
+    t0 = time.perf_counter()
+    train = phase_train(torch, dev, cfg, state)
+    log(f"training phase {time.perf_counter() - t0:.1f} s")
     times = phase_kernel_times(torch, dev)
     if args.profile:
         phase_profile(torch, dev, cfg, state, args.out)
@@ -743,6 +1043,10 @@ def main() -> int:
          "ms": times["mbconv_fused"][0],
          "plain_ms": times["mbconv_fused"][1]},
     ]
+    log(f"training D0@512 bf16 frozen BN B={TRAIN_BATCH}: {train['ms']:.3f} "
+        f"ms/step, {train['img_s']:.1f} img/s, peak memory "
+        f"{train['peak_gib']:.2f} GiB; focal backward f32 within "
+        f"{train['focal_f32_rel_err']:.3g} of the largest gradient")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,19 +1,25 @@
 """EfficientDet in PyTorch for NVIDIA Hopper: the port of ``efficientdet_tpu``.
 
 The serving path of the JAX package (EfficientNet backbone -> BiFPN ->
-RetinaHead -> top-K -> greedy NMS) in PyTorch, with hand-written kernels for
-the TPU kernels on that path: greedy NMS and the fused MBConv expand +
-depthwise in CUDA C++ (``csrc/``), the BiFPN fusion nodes in Triton
-(``kernels/fusion.py``). The configuration is
-the JAX package's own, which is free of JAX; this package never imports jax.
+RetinaHead -> top-K -> greedy NMS) and its training step (per-level focal
+loss with the analytic backward, BatchNorm modes, drop-connect, AdamW with
+global-norm clipping and gradient accumulation) in PyTorch, with
+hand-written kernels for the TPU kernels of the serving path: greedy NMS
+and the fused MBConv expand + depthwise in CUDA C++ (``csrc/``), the BiFPN
+fusion nodes in Triton (``kernels/fusion.py``). The configuration and the
+host data pipeline are the JAX package's own, which are free of JAX; this
+package never imports jax.
 """
 
 from efficientdet_tpu.config import (EFFICIENTDET, MODEL_MAP, DetectorConfig,
                                      get_model_params, round_filters)
 
+from .data import to_device
 from .models import EfficientDet, fused_backbone_forward
-from .train import make_eval_step
+from .train import (OptimizerConfig, PlateauScheduler, create_train_state,
+                    make_eval_step, make_loss_step, make_train_step)
 
 __all__ = ["EFFICIENTDET", "MODEL_MAP", "DetectorConfig", "EfficientDet",
+           "OptimizerConfig", "PlateauScheduler", "create_train_state",
            "fused_backbone_forward", "get_model_params", "make_eval_step",
-           "round_filters"]
+           "make_loss_step", "make_train_step", "round_filters", "to_device"]

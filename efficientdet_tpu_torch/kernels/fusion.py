@@ -25,7 +25,8 @@ fused elementwise pass like this is what Triton's masked block loads
 express fully, so it serves here as well as CUDA C++ would.
 
 The wrappers take the CPU path (plain version) for CPU tensors and launch
-the kernel for CUDA tensors, raising on anything the kernel does not take.
+the kernel for CUDA tensors, raising on anything the kernel does not take,
+and on every device on inputs that need a gradient (``reject_autograd``).
 ``fuse_topdown.launches`` and ``fuse_bottomup.launches`` count launches.
 """
 
@@ -35,6 +36,8 @@ import functools
 
 import torch
 import torch.nn.functional as F
+
+from . import reject_autograd
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _TILE_ELEMENTS = 2048  # BLOCK_P * BLOCK_C per program
@@ -148,6 +151,7 @@ def _blocks(c: int):
 def fuse_topdown(big: torch.Tensor, small: torch.Tensor,
                  weights: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
     """Top-down fusion node; same contract as ``fuse_topdown_plain``."""
+    reject_autograd("fuse_topdown", big, small, weights)
     if big.device.type == "cpu":
         return fuse_topdown_plain(big, small, weights, eps)
     if big.device.type != "cuda":
@@ -173,6 +177,7 @@ def fuse_topdown(big: torch.Tensor, small: torch.Tensor,
 def fuse_bottomup(cur: torch.Tensor, lower: torch.Tensor, skip: torch.Tensor,
                   weights: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
     """Bottom-up fusion node; same contract as ``fuse_bottomup_plain``."""
+    reject_autograd("fuse_bottomup", cur, lower, skip, weights)
     if cur.device.type == "cpu":
         return fuse_bottomup_plain(cur, lower, skip, weights, eps)
     if cur.device.type != "cuda":

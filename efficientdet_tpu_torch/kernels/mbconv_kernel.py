@@ -22,7 +22,8 @@ z (B, Ho, Wo, Ce), Ho = ceil(H / s). A ``channels_last`` NCHW tensor's
 ``permute(0, 2, 3, 1)`` is already a contiguous (B, H, W, C) view.
 
 The wrappers take the plain version for CPU tensors and launch the kernel
-for CUDA tensors, raising on anything the kernel does not take.
+for CUDA tensors, raising on anything the kernel does not take, and on
+every device on inputs that need a gradient (``reject_autograd``).
 ``fused_expand_dw.launches`` and ``fused_expand_dw_flat.launches`` count
 kernel launches.
 """
@@ -35,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.padding import same_padding_1d
-from . import _build
+from . import _build, reject_autograd
 
 _DTYPES = (torch.float32, torch.bfloat16)
 # Every MBConv expand of efficientnet-b0..b6: Cin 16..576, multiples of 8;
@@ -193,6 +194,8 @@ def fused_expand_dw(x, w_expand, scale0, bias0, w_dw, scale1, bias1,
     """v1 contract (``efficientdet_tpu`` ``fused_expand_dw``): x (B, H, W,
     Cin) f32/bf16, w_expand (Cin, Ce), scale0/bias0/scale1/bias1 (Ce,),
     w_dw (K, K, Ce) -> (z (B, Ho, Wo, Ce) x.dtype, se_mean (B, Ce) f32)."""
+    reject_autograd("fused_expand_dw", x, w_expand, scale0, bias0, w_dw,
+                    scale1, bias1)
     if x.device.type == "cpu":
         return fused_expand_dw_plain(x, w_expand, scale0, bias0, w_dw, scale1,
                                      bias1, stride)
@@ -208,6 +211,8 @@ def fused_expand_dw_flat(x, w_expand, scale0, bias0, w_dw, scale1, bias1,
                          stride: int = 1) -> Pair:
     """flat contract (``efficientdet_tpu`` ``fused_expand_dw_flat``); the
     arguments and results are those of ``fused_expand_dw``."""
+    reject_autograd("fused_expand_dw_flat", x, w_expand, scale0, bias0, w_dw,
+                    scale1, bias1)
     if x.device.type == "cpu":
         return fused_expand_dw_flat_plain(x, w_expand, scale0, bias0, w_dw,
                                           scale1, bias1, stride)

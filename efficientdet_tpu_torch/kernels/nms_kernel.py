@@ -17,7 +17,7 @@ from typing import Tuple
 
 import torch
 
-from . import _build
+from . import _build, reject_autograd
 
 # Shared memory holds 6 float planes of K values; 227 KB per block on Hopper.
 MAX_CANDIDATES = 8192
@@ -57,8 +57,10 @@ def nms_select(scores: torch.Tensor, boxes: torch.Tensor,
     """Greedy NMS per image; same contract as ``nms_select_plain``.
 
     A CPU tensor takes the plain version. A CUDA tensor launches the kernel
-    on the current stream, or raises on what the kernel does not take.
+    on the current stream, or raises on what the kernel does not take. Any
+    device raises on inputs that need a gradient (``reject_autograd``).
     ``nms_select.launches`` counts kernel launches."""
+    reject_autograd("nms_select", scores, boxes)
     if scores.device.type == "cpu":
         return nms_select_plain(scores, boxes, iou_threshold, max_detections)
     if scores.device.type != "cuda":

@@ -1,5 +1,5 @@
-"""EfficientDet assembly: backbone -> BiFPN -> RetinaHead, plus anchors and
-the NMS tail for serving.
+"""EfficientDet assembly: backbone -> BiFPN -> RetinaHead, plus anchors, the
+training forwards and losses, and the NMS tail for serving.
 
 Counterpart of ``efficientdet_tpu/models/detector.py``. Images go in NHWC
 ``(B, H, W, 3)``, as in the JAX package; inside, tensors are logical NCHW in
@@ -9,9 +9,10 @@ Counterpart of ``efficientdet_tpu/models/detector.py``. Images go in NHWC
 buffer and stay out of it.
 
 Parameters are float32; ``dtype`` is the compute dtype (bfloat16 for
-serving), applied to activations. Convert memory layout with
+serving and training), applied to activations. Convert memory layout with
 ``model.to(memory_format=torch.channels_last)``, not the dtype with
-``model.to(dtype)``.
+``model.to(dtype)``. The JAX package's ``train`` flag is the module's
+``train()`` / ``eval()`` mode; the BatchNorm mode is ``cfg.bn_mode``.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from torch import nn
 from efficientdet_tpu.config import DetectorConfig
 
 from ..ops import anchors as anchor_ops
+from ..ops import losses as loss_ops
 from ..ops import nms as nms_ops
 from .bifpn import BiFPN
 from .efficientnet import EfficientNetFeatures
@@ -32,18 +34,25 @@ from .retina_head import RetinaHead
 
 class EfficientDet(nn.Module):
     """The detector network. ``forward(images NHWC)`` -> (cls_probs
-    (B, A, C) f32, box_deltas (B, A, 4) f32)."""
+    (B, A, C) f32, box_deltas (B, A, 4) f32).
+
+    ``remat`` recomputes each MBConv block in the backward. The fusion
+    kernels (``use_fusion_kernels``) have no backward: asked for gradients,
+    they raise (``kernels.reject_autograd``), so a model that trains keeps
+    them off."""
 
     def __init__(self, config: DetectorConfig, *,
                  dtype: torch.dtype = torch.float32,
-                 use_fusion_kernels: bool = False,
+                 use_fusion_kernels: bool = False, remat: bool = False,
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         cfg = config.resolve()
         device = torch.device("cpu" if device is None else device)
         self.config = cfg
         self.dtype = dtype
-        self.backbone = EfficientNetFeatures(cfg.backbone_name, device=device)
+        self.backbone = EfficientNetFeatures(cfg.backbone_name,
+                                             bn_mode=cfg.bn_mode, remat=remat,
+                                             device=device)
         self.neck = BiFPN(self.backbone.feature_channels[-5:], cfg.W_bifpn,
                           stack=cfg.D_bifpn,
                           use_fusion_kernels=use_fusion_kernels,
@@ -84,6 +93,26 @@ class EfficientDet(nn.Module):
         cls_probs, box_deltas = self.bbox_head(self.extract_features(images))
         return cls_probs.float(), box_deltas.float()
 
+    def _train_pyramid(self, images, generator):
+        return self.neck(self.backbone(self._nchw(images), generator)[-5:])
+
+    def train_forward(self, images: torch.Tensor,
+                      generator: Optional[torch.Generator] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(cls_logits (B, A, C), box_deltas (B, A, 4)), pre-sigmoid, in the
+        compute dtype; ``generator`` draws the drop-connect masks (training
+        mode only)."""
+        return self.bbox_head(self._train_pyramid(images, generator),
+                              return_logits=True)
+
+    def train_forward_levels(self, images: torch.Tensor,
+                             generator: Optional[torch.Generator] = None):
+        """Per-level ``train_forward``: lists [(B, A_l, C)], [(B, A_l, 4)]
+        in the compute dtype, unconcatenated, for
+        ``detection_loss_from_level_logits``."""
+        return self.bbox_head(self._train_pyramid(images, generator),
+                              return_logits=True, per_level=True)
+
     def serving_forward(self, images: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(scores (B, A) f32, classes (B, A) int32, box_deltas (B, A, 4)
@@ -105,7 +134,7 @@ def pyramid_shapes_for_model(model: EfficientDet
     ``meta`` device (shapes only, no FLOPs), as ``jax.eval_shape`` gives
     them. At input sizes divisible by 128 this is the ceil pyramid."""
     cfg = model.config
-    twin = EfficientDet(cfg, device="meta")
+    twin = EfficientDet(cfg, device="meta").eval()
     with torch.no_grad():
         feats = twin.extract_features(torch.empty(
             1, cfg.input_size, cfg.input_size, 3, device="meta"))
@@ -118,6 +147,47 @@ def anchors_for_model(model: EfficientDet) -> torch.Tensor:
     return torch.from_numpy(anchor_ops.anchors_for_feature_shapes(
         pyramid_shapes_for_model(model), tuple(cfg.pyramid_levels),
         tuple(cfg.anchor_ratios), tuple(cfg.anchor_scales)).copy())
+
+
+def anchor_levels_for_model(model: EfficientDet) -> List[torch.Tensor]:
+    """``model.anchors`` split at the level boundaries, [(A_l, 4), ...]
+    views on the model's device, for the per-level training path."""
+    per_cell = model.config.num_anchors_per_cell
+    sizes = [h * w * per_cell for h, w in pyramid_shapes_for_model(model)]
+    if sum(sizes) != model.anchors.shape[0]:
+        raise ValueError(f"level sizes {sizes} do not sum to the "
+                         f"{model.anchors.shape[0]} anchors")
+    return list(model.anchors.split(sizes))
+
+
+def detection_loss(cls_probs: torch.Tensor, box_deltas: torch.Tensor,
+                   anchors: torch.Tensor, annotations: torch.Tensor,
+                   cfg: DetectorConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cls_loss, reg_loss) from ``forward``'s probabilities."""
+    return loss_ops.focal_loss(cls_probs, box_deltas, anchors, annotations,
+                               alpha=cfg.focal_alpha, gamma=cfg.focal_gamma)
+
+
+def detection_loss_from_logits(cls_logits: torch.Tensor,
+                               box_deltas: torch.Tensor,
+                               anchors: torch.Tensor, annotations: torch.Tensor,
+                               cfg: DetectorConfig
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cls_loss, reg_loss) from ``train_forward`` outputs."""
+    return loss_ops.focal_loss_from_logits(
+        cls_logits, box_deltas, anchors, annotations,
+        alpha=cfg.focal_alpha, gamma=cfg.focal_gamma)
+
+
+def detection_loss_from_level_logits(cls_levels, reg_levels, anchor_levels,
+                                     annotations: torch.Tensor,
+                                     cfg: DetectorConfig
+                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cls_loss, reg_loss) from ``train_forward_levels`` outputs: the
+    training objective."""
+    return loss_ops.focal_loss_from_level_logits(
+        cls_levels, reg_levels, anchor_levels, annotations,
+        alpha=cfg.focal_alpha, gamma=cfg.focal_gamma)
 
 
 def postprocess_from_scores(scores: torch.Tensor, classes: torch.Tensor,

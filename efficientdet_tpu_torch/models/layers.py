@@ -1,10 +1,11 @@
-"""Shared building blocks: SAME-padded conv, frozen BatchNorm, swish, resizes.
+"""Shared building blocks: SAME-padded conv, BatchNorm (frozen, train and
+sync modes), swish, drop-connect, resizes.
 
 Counterpart of ``efficientdet_tpu/models/layers.py``. Tensors are logical
 NCHW in ``channels_last`` memory. Parameters stay float32, as the JAX
 package's ``param_dtype``; a conv casts its weight to the activation dtype
-when it runs (bf16 serving), and BatchNorm normalizes a bf16 input with its
-float32 statistics, as flax does.
+when it runs (bf16 serving and training), and BatchNorm normalizes a bf16
+input with float32 statistics, as flax does.
 """
 
 from __future__ import annotations
@@ -71,25 +72,78 @@ class ConvModule(nn.Module):
         return self.conv(x)
 
 
+BN_MODES = ("frozen", "train", "sync")
+
+
 class BatchNorm(nn.BatchNorm2d):
-    """Frozen BatchNorm: always normalizes with the running statistics (the
-    reference's frozen-BN training and every eval). eps 1e-3 and momentum
-    0.01, which is flax's momentum 0.99. The train and sync modes come with
-    the training path."""
+    """BatchNorm in the JAX package's modes; eps 1e-3 and momentum 0.01,
+    which is flax's momentum 0.99.
+
+    - ``frozen``: always normalizes with the running statistics (the
+      reference's frozen-BN training and every eval); scale and bias still
+      train.
+    - ``train``: in training mode, normalizes with the batch statistics and
+      moves the running ones by flax's rule, ``ra = 0.99 ra + 0.01 stat``,
+      with the mean and the *biased* variance (E[x^2] - E[x]^2, clipped at
+      0) reduced in float32 also for a bf16 input, as flax does. torch's
+      own update would use the unbiased variance, so the buffers are
+      updated here. In eval mode it is frozen.
+    - ``sync``: cross-device batch statistics; not ported yet (it needs the
+      data-parallel slice), so training mode raises. On one device the JAX
+      package cannot run it either: its axis name is unbound.
+
+    ``update_stats`` off skips the buffer update: a rematerialized forward
+    recomputes the same batch and must not move the statistics twice.
+    """
 
     def __init__(self, num_features: int, eps: float = 1e-3,
-                 momentum: float = 0.01, device=None):
+                 momentum: float = 0.01, mode: str = "frozen", device=None):
+        if mode not in BN_MODES:
+            raise ValueError(f"unknown bn mode: {mode}")
         super().__init__(num_features, eps=eps, momentum=momentum,
                          device=device)
+        self.mode = mode
+        self.update_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, self.eps)
+        if self.mode == "frozen" or not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        if self.mode == "sync":
+            raise NotImplementedError(
+                "bn_mode='sync' needs the data-parallel slice of the port")
+        if self.update_stats:
+            with torch.no_grad():
+                xf = x.float()
+                mean = xf.mean(dim=(0, 2, 3))
+                var = (xf * xf).mean(dim=(0, 2, 3)).sub_(mean * mean)
+                var.clamp_min_(0.0)
+                del xf
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        # torch.batch_norm, not F.batch_norm: the latter refuses one value
+        # per channel (B = 1 at a 1x1 level), where flax gives variance 0.
+        return torch.batch_norm(x, self.weight, self.bias, None, None, True,
+                                0.0, self.eps, torch.backends.cudnn.enabled)
 
 
 def swish(x: torch.Tensor) -> torch.Tensor:
     """x * sigmoid(x)."""
     return F.silu(x)
+
+
+def drop_connect(x: torch.Tensor, rate: float,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Stochastic depth: drop each sample's residual with probability
+    ``rate`` and rescale the survivors, ``x / keep * floor(keep + u)``, u ~
+    U[0, 1) of shape (B, 1, 1, 1). As in JAX, u, keep and the arithmetic are
+    in x's dtype, so in bf16 the drop probability is the bf16-rounded one.
+    ``generator`` must live on x's device (None: torch's default one)."""
+    keep = torch.full((), 1.0 - rate, dtype=x.dtype, device=x.device)
+    u = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), dtype=x.dtype,
+                   device=x.device, generator=generator)
+    return x / keep * torch.floor(keep + u)
 
 
 def upsample_nearest_to(x: torch.Tensor, h: int, w: int) -> torch.Tensor:

@@ -1,15 +1,18 @@
 """RetinaNet-style shared classification and regression head.
 
-Counterpart of ``efficientdet_tpu/models/retina_head.py`` in its probability
-and serving modes: two subnets of ``stacked_convs`` 3x3 conv + ReLU layers
-shared across levels, then 3x3 convs to A*C class logits and A*4 box
-deltas. Each level's NCHW output is permuted to NHWC before it is flattened,
-so anchors come in (y, x, anchor) order, the order of ``ops/anchors.py``.
+Counterpart of ``efficientdet_tpu/models/retina_head.py``: two subnets of
+``stacked_convs`` 3x3 conv + ReLU layers shared across levels, then 3x3
+convs to A*C class logits and A*4 box deltas. Each level's NCHW output is
+permuted to NHWC before it is flattened, so anchors come in (y, x, anchor)
+order, the order of ``ops/anchors.py``, and classes vary fastest.
 
-Serving mode (``reduce_classes``) takes the class max and argmax per level on
-the logits in the compute dtype (sigmoid is monotonic, so the class is the
-same) and applies the sigmoid in float32 afterwards; the (B, A, C) tensor is
-never formed.
+Modes: probabilities (default); serving (``reduce_classes``) takes the class
+max and argmax per level on the logits in the compute dtype (sigmoid is
+monotonic, so the class is the same) and applies the sigmoid in float32
+afterwards, so the (B, A, C) tensor is never formed; training
+(``return_logits``) gives the pre-sigmoid logits in the compute dtype, and
+with ``per_level`` the per-level lists unconcatenated, for
+``ops/losses.py::focal_loss_from_level_logits``.
 """
 
 from __future__ import annotations
@@ -51,10 +54,16 @@ class RetinaHead(nn.Module):
                                    torch_padding=1, device=device)
 
     def forward(self, feats: Sequence[torch.Tensor],
-                reduce_classes: bool = False):
+                reduce_classes: bool = False, return_logits: bool = False,
+                per_level: bool = False):
         """Default: (cls_probs (B, A, C), reg (B, A, 4)) in the compute
         dtype. ``reduce_classes``: (scores (B, A) f32, classes (B, A) int32,
-        reg (B, A, 4) f32)."""
+        reg (B, A, 4) f32). ``return_logits``: (cls_logits (B, A, C), reg)
+        in the compute dtype; with ``per_level``, lists [(B, A_l, C)],
+        [(B, A_l, 4)]."""
+        if per_level and (reduce_classes or not return_logits):
+            raise ValueError("per_level needs return_logits and not "
+                             "reduce_classes")
         cls_outs, arg_outs, reg_outs = [], [], []
         for x in feats:
             b = x.shape[0]
@@ -69,10 +78,14 @@ class RetinaHead(nn.Module):
                 mx, am = reductions.max_argmax(logits)
                 cls_outs.append(mx)
                 arg_outs.append(am)
+            elif return_logits:
+                cls_outs.append(logits)
             else:
                 cls_outs.append(torch.sigmoid(logits))
             reg_outs.append(self.retina_reg(reg_feat).permute(0, 2, 3, 1)
                             .reshape(b, -1, 4))
+        if per_level:
+            return cls_outs, reg_outs
         reg = torch.cat(reg_outs, dim=1)
         if reduce_classes:
             scores = torch.sigmoid(torch.cat(cls_outs, dim=1).float())

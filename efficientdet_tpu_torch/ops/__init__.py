@@ -1,1 +1,1 @@
-"""Tensor ops of the PyTorch port: padding, anchors, boxes, NMS."""
+"""Tensor ops of the PyTorch port: padding, anchors, boxes, losses, NMS."""

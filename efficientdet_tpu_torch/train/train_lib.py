@@ -1,21 +1,42 @@
-"""Serving step: on-device uint8 normalization, forward, NMS tail.
+"""Training and serving steps: on-device uint8 normalization, the train step
+with its optimizer, the loss step, and the eval step with its NMS tail.
 
-Counterpart of the eval step of ``efficientdet_tpu/train/train_lib.py``
-(``maybe_normalize_images``, ``make_eval_step``, with its fused-backbone
-variant). Training (losses, the backward, the optimizer) comes with the
-training path.
+Counterpart of ``efficientdet_tpu/train/train_lib.py``:
+
+- ``make_optimizer``: optax's ``clip_by_global_norm`` then AdamW, with
+  ``optax.MultiSteps`` gradient accumulation. The clip scales by
+  ``max / norm`` only when the norm reaches ``max`` (not torch's
+  ``clip_grad_norm_``, whose ``max / (norm + 1e-6)`` differs). AdamW is
+  ``torch.optim.AdamW`` on one parameter group: b1 0.9, b2 0.999, eps 1e-8
+  outside the square root, weight decay on every parameter, which is what
+  optax's ``adamw`` computes. Accumulation keeps the running mean
+  ``acc += (g - acc) / (i + 1)`` of k mini-step gradients; the clip and
+  AdamW act on it at the k-th, and neither the parameters nor Adam's count
+  move in between.
+- ``make_train_step``: forward on per-level logits, the focal loss with its
+  analytic backward, gradients, clip, update. The JAX ``train`` flag is the
+  model's training mode: the step puts the model in it; BatchNorm running
+  statistics move only with ``cfg.bn_mode == 'train'``. The drop-connect
+  generator of a step is seeded from ``(seed, step)``, as JAX folds the
+  step into its key.
+- ``PlateauScheduler``: a copy of the JAX package's (which lives in a
+  module that imports jax and optax), torch's ReduceLROnPlateau semantics.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Callable
+from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from efficientdet_tpu.config import DetectorConfig
 
-from ..models.detector import EfficientDet, postprocess_from_scores
+from ..models.detector import (EfficientDet, anchor_levels_for_model,
+                               detection_loss_from_level_logits,
+                               postprocess_from_scores)
 from ..models.fused_serving import fused_backbone_forward
 from ..ops.nms import Detections
 
@@ -44,6 +65,196 @@ def maybe_normalize_images(images: torch.Tensor) -> torch.Tensor:
     return (images.float() * (1.0 / 255.0) - mean) / std
 
 
+# ------------------------------------------------------------------ optimizer
+@dataclasses.dataclass
+class OptimizerConfig:
+    learning_rate: float = 1e-4          # reference train.py:268 AdamW lr
+    weight_decay: float = 1e-2           # torch AdamW default
+    grad_clip_norm: float = 0.1          # reference train.py:117
+    grad_accumulation_steps: int = 1     # reference train.py:115
+    b1: float = 0.9
+    b2: float = 0.999
+
+
+def make_optimizer(params, cfg: OptimizerConfig) -> torch.optim.AdamW:
+    """AdamW over ``params`` in one group; the clip and the accumulation
+    are ``apply_gradients``'."""
+    return torch.optim.AdamW(params, lr=cfg.learning_rate,
+                             betas=(cfg.b1, cfg.b2), eps=1e-8,
+                             weight_decay=cfg.weight_decay)
+
+
+def get_learning_rate(optimizer: torch.optim.Optimizer) -> float:
+    return float(optimizer.param_groups[0]["lr"])
+
+
+def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Set the learning rate of every parameter group, in place."""
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+
+
+def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, float32, on device."""
+    return torch.linalg.vector_norm(torch.stack(
+        torch._foreach_norm([t.float() for t in tensors])))
+
+
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float
+                         ) -> torch.Tensor:
+    """optax.clip_by_global_norm in place: ``g / norm * max_norm`` where the
+    norm reaches ``max_norm``, else ``g`` unchanged, decided on the device
+    without a host sync. Returns the norm."""
+    norm = global_norm(grads)
+    clip = norm >= max_norm
+    torch._foreach_div_(grads, torch.where(clip, norm, 1.0))
+    torch._foreach_mul_(grads, torch.where(clip, max_norm, 1.0))
+    return norm
+
+
+class PlateauScheduler:
+    """ReduceLROnPlateau with torch's semantics: mode min, relative
+    threshold 1e-4 (an epoch improves only if it beats best * (1 -
+    threshold)), cooldown epochs after each decay during which bad epochs
+    are not counted. ``step(metric, lr)`` returns the new learning rate."""
+
+    def __init__(self, factor: float = 0.1, patience: int = 3,
+                 min_lr: float = 0.0, threshold: float = 1e-4,
+                 cooldown: int = 0):
+        self.factor = factor
+        self.patience = patience
+        self.min_lr = min_lr
+        self.threshold = threshold
+        self.cooldown = cooldown
+        self.best = float("inf")
+        self.bad_epochs = 0
+        self.cooldown_counter = 0
+
+    def step(self, metric: float, lr: float) -> float:
+        if metric < self.best * (1.0 - self.threshold):
+            self.best = metric
+            self.bad_epochs = 0
+        else:
+            self.bad_epochs += 1
+        if self.cooldown_counter > 0:
+            self.cooldown_counter -= 1
+            self.bad_epochs = 0
+        if self.bad_epochs > self.patience:
+            self.bad_epochs = 0
+            self.cooldown_counter = self.cooldown
+            return max(lr * self.factor, self.min_lr)
+        return lr
+
+
+# ---------------------------------------------------------------- train state
+@dataclasses.dataclass
+class TrainState:
+    """The model (its parameters and BatchNorm statistics), the optimizer,
+    the gradient accumulator and the step count. ``step`` counts train-step
+    calls (mini-steps); ``mini_step`` is the position in the accumulation
+    cycle."""
+    model: EfficientDet
+    optimizer: torch.optim.AdamW
+    opt_cfg: OptimizerConfig
+    step: int = 0
+    mini_step: int = 0
+    accum: Optional[List[torch.Tensor]] = None
+
+    @property
+    def params(self) -> List[torch.Tensor]:
+        return self.optimizer.param_groups[0]["params"]
+
+    def apply_gradients(self, grads: List[torch.Tensor]) -> None:
+        """Accumulate (k > 1), then clip and update at the k-th mini-step;
+        ``grads`` may be modified in place."""
+        k = self.opt_cfg.grad_accumulation_steps
+        if k > 1:
+            if self.accum is None:
+                self.accum = [torch.zeros_like(g) for g in grads]
+            i = self.mini_step
+            torch._foreach_add_(self.accum, torch._foreach_div(
+                torch._foreach_sub(grads, self.accum), float(i + 1)))
+            self.mini_step = (i + 1) % k
+            if self.mini_step:
+                return
+            grads = self.accum
+        clip_by_global_norm_(grads, self.opt_cfg.grad_clip_norm)
+        for p, g in zip(self.params, grads):
+            p.grad = g
+        self.optimizer.step()
+        for p in self.params:
+            p.grad = None
+        if k > 1:
+            torch._foreach_zero_(self.accum)
+
+
+def create_train_state(model: EfficientDet,
+                       opt_cfg: Optional[OptimizerConfig] = None
+                       ) -> TrainState:
+    """A train state over ``model``'s parameters, in their ``parameters()``
+    order, with a fresh optimizer."""
+    opt_cfg = opt_cfg or OptimizerConfig()
+    return TrainState(model, make_optimizer(list(model.parameters()),
+                                            opt_cfg), opt_cfg)
+
+
+def step_generator(seed: int, step: int, device: torch.device
+                   ) -> torch.Generator:
+    """The drop-connect generator of one step, on ``device``, seeded from
+    ``(seed, step)``."""
+    mixed = int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
+    return torch.Generator(device=device).manual_seed(mixed)
+
+
+def make_train_step(model: EfficientDet, cfg: DetectorConfig
+                    ) -> Callable[[TrainState, Dict, int],
+                                  Dict[str, torch.Tensor]]:
+    """(state, batch {'images', 'annotations'} on the model's device, seed)
+    -> metrics {'loss', 'cls_loss', 'reg_loss', 'grad_norm'} as 0-dim
+    device tensors (no host sync). Updates ``state`` in place and advances
+    ``state.step``; ``grad_norm`` is the global norm of this call's raw
+    gradient."""
+    cfg = cfg.resolve()
+    anchor_levels = anchor_levels_for_model(model)
+
+    def train_step(state: TrainState, batch: Dict, seed: int
+                   ) -> Dict[str, torch.Tensor]:
+        images = maybe_normalize_images(batch["images"])
+        state.model.train()
+        cls_levels, reg_levels = state.model.train_forward_levels(
+            images, step_generator(seed, state.step, images.device))
+        cls_loss, reg_loss = detection_loss_from_level_logits(
+            cls_levels, reg_levels, anchor_levels, batch["annotations"], cfg)
+        loss = cls_loss + reg_loss
+        grads = list(torch.autograd.grad(loss, state.params))
+        grad_norm = global_norm(grads)
+        state.apply_gradients(grads)
+        state.step += 1
+        return {"loss": loss.detach(), "cls_loss": cls_loss.detach(),
+                "reg_loss": reg_loss.detach(), "grad_norm": grad_norm}
+
+    return train_step
+
+
+def make_loss_step(model: EfficientDet, cfg: DetectorConfig
+                   ) -> Callable[[Dict], tuple]:
+    """batch -> (cls_loss, reg_loss) in eval mode without autograd: the
+    validation loss in the training formulation."""
+    cfg = cfg.resolve()
+    anchor_levels = anchor_levels_for_model(model)
+
+    @torch.no_grad()
+    def loss_step(batch: Dict):
+        model.eval()
+        cls_levels, reg_levels = model.train_forward_levels(
+            maybe_normalize_images(batch["images"]))
+        return detection_loss_from_level_logits(
+            cls_levels, reg_levels, anchor_levels, batch["annotations"], cfg)
+
+    return loss_step
+
+
+# ---------------------------------------------------------------- eval step
 def make_eval_step(model: EfficientDet, cfg: DetectorConfig,
                    fused_backbone: bool = False
                    ) -> Callable[[torch.Tensor], Detections]:

@@ -142,3 +142,102 @@ def test_small_fused_backbone_step_launches_kernel(cuda):
             nms_select.launches - counts[2]) == (15, 0, 1)
     assert det.scores.shape == (2, 100)
     assert torch.isfinite(det.boxes).all()
+
+
+def _small_batch(device, b=2):
+    from efficientdet_tpu_torch.data import (SyntheticDetection, collate,
+                                             to_device)
+    ds = SyntheticDetection(length=b, image_size=128, num_classes=4, seed=1)
+    return to_device(collate([ds[i] for i in range(b)], max_boxes=8,
+                             uint8_images=True), device)
+
+
+def _wrapper_calls(device):
+    """Each kernel wrapper with small card inputs of its contract."""
+    gen = torch.Generator().manual_seed(0)
+    cl = torch.channels_last
+
+    def r(*s, layout=torch.contiguous_format):
+        return torch.rand(*s, generator=gen).to(device).contiguous(
+            memory_format=layout)
+
+    boxes = torch.cat([torch.rand(1, 10, 2, generator=gen) * 50,
+                       torch.rand(1, 10, 2, generator=gen) * 50 + 60], -1)
+    return {
+        "fuse_topdown": (fusion.fuse_topdown,
+                         (r(1, 8, 4, 4, layout=cl), r(1, 8, 2, 2, layout=cl),
+                          r(2))),
+        "fuse_bottomup": (fusion.fuse_bottomup,
+                          (r(1, 8, 2, 2, layout=cl), r(1, 8, 4, 4, layout=cl),
+                           r(1, 8, 2, 2, layout=cl), r(3))),
+        "fused_expand_dw": (mbconv_kernel.fused_expand_dw,
+                            _mbconv_args(device)),
+        "fused_expand_dw_flat": (mbconv_kernel.fused_expand_dw_flat,
+                                 _mbconv_args(device)),
+        "nms_select": (nms_select, (r(1, 10), boxes.to(device), 0.5, 5)),
+    }
+
+
+@pytest.mark.parametrize("name", ["fuse_topdown", "fuse_bottomup",
+                                  "fused_expand_dw", "fused_expand_dw_flat",
+                                  "nms_select"])
+def test_kernel_wrappers_refuse_gradients(cuda, name):
+    """Asked for a gradient, a wrapper raises before it launches (the
+    kernel has no backward); without grad mode it launches once."""
+    fn, args = _wrapper_calls(cuda)[name]
+    args[0].requires_grad_()
+    before = fn.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        fn(*args)
+    assert fn.launches == before
+    with torch.no_grad():
+        fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+
+
+def test_fusion_model_refuses_to_train(cuda):
+    """A model with the BiFPN fusion kernels raises in a train step on the
+    card, as on the CPU, instead of training with the gradients above the
+    BiFPN nodes cut."""
+    from efficientdet_tpu_torch import create_train_state, make_train_step
+    cfg = DetectorConfig(**SMALL)
+    model = EfficientDet(cfg, dtype=torch.bfloat16, use_fusion_kernels=True,
+                         device=cuda,
+                         generator=torch.Generator().manual_seed(0))
+    model = model.to(memory_format=torch.channels_last)
+    with pytest.raises(RuntimeError, match="fuse_topdown: the kernel has no"):
+        make_train_step(model, cfg)(create_train_state(model),
+                                    _small_batch(cuda), 0)
+
+
+def test_small_train_step(cuda):
+    """One bf16 train step of the small detector at 128 px, B = 2, on the
+    card: finite metrics and gradients, every parameter that got a non-zero
+    gradient moved, and none of the kernels launched."""
+    from efficientdet_tpu_torch import create_train_state, make_train_step
+    cfg = DetectorConfig(**SMALL)
+    model = EfficientDet(cfg, dtype=torch.bfloat16, device=cuda,
+                         generator=torch.Generator().manual_seed(0))
+    model = model.to(memory_format=torch.channels_last)
+    before = [p.detach().clone() for p in model.parameters()]
+    state = create_train_state(model)
+    grads = []
+    apply = state.apply_gradients
+    state.apply_gradients = lambda gs: (grads.extend(g.clone() for g in gs),
+                                        apply(gs))
+    counters = (nms_select, fusion.fuse_topdown, fusion.fuse_bottomup,
+                mbconv_kernel.fused_expand_dw,
+                mbconv_kernel.fused_expand_dw_flat)
+    launches = [fn.launches for fn in counters]
+    metrics = make_train_step(model, cfg)(state, _small_batch(cuda), 0)
+    torch.cuda.synchronize()
+    assert state.step == 1
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    assert metrics["reg_loss"].item() > 0
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    for p, b, g in zip(model.parameters(), before, grads):
+        assert p.dtype == torch.float32 and g.dtype == torch.float32
+        if g.any():
+            assert not torch.equal(p, b)
+    assert [fn.launches for fn in counters] == launches

@@ -285,6 +285,20 @@ for fusion, fused_backbone in ((False, False), (True, False), (False, True)):
     det = make_eval_step(model, cfg, fused_backbone=fused_backbone)(
         torch.randint(0, 256, (2, 128, 128, 3), dtype=torch.uint8))
     assert det.scores.shape == (2, 100) and bool(det.valid.any())
+
+import efficientdet_tpu.data
+import efficientdet_tpu_torch.ops.losses
+from efficientdet_tpu_torch import (create_train_state, make_loss_step,
+                                    make_train_step, to_device)
+from efficientdet_tpu_torch.data import SyntheticDetection, collate
+ds = SyntheticDetection(length=2, image_size=128, num_classes=4, seed=1)
+batch = to_device(collate([ds[0], ds[1]], max_boxes=8, uint8_images=True),
+                  "cpu")
+model = EfficientDet(cfg, generator=torch.Generator().manual_seed(0))
+state = create_train_state(model)
+metrics = make_train_step(model, cfg)(state, batch, 0)
+assert state.step == 1 and bool(torch.isfinite(metrics["loss"]))
+assert all(bool(torch.isfinite(v)) for v in make_loss_step(model, cfg)(batch))
 print("NO_JAX_OK")
 """
 
@@ -292,7 +306,8 @@ print("NO_JAX_OK")
 def test_port_runs_with_jax_blocked():
     """The port imports neither jax nor flax: with both blocked, it builds
     and runs the CPU slice, with the fusion kernels and with the fused
-    MBConv backbone."""
+    MBConv backbone, and takes a train step from ``efficientdet_tpu.data``
+    batches (the JAX package's data path is free of jax)."""
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
