@@ -7,7 +7,11 @@ weights from a seed) at batch 1 and 32 on three paths (plain; BiFPN fusion
 kernels; fused MBConv backbone), checks the detections, drives the D0@512
 bf16 training step (``make_train_step``: timed at batch 64, overfitting a
 batch of 8, the focal backward, the BatchNorm modes, ``remat``), and times
-the steps and the kernels.
+the steps and the kernels: each kernel beside its plain version and its
+bound (the larger of its bytes over the H100's 3.35 TB/s and its operations
+over the peak rate of their type), the fused MBConv kernel also per block
+shape beside the module path's ops, the BiFPN fusion kernels with their
+inputs rotated through more than the 50 MB L2.
 
     python3 chip_smoke.py [--profile [--out DIR]]
 
@@ -39,8 +43,56 @@ ROUNDS = 4                # alternating rounds the steps are split into
 WARMUP = 3
 
 
+# NVIDIA H100 SXM peaks (data sheet, dense): device memory bytes/s, bf16
+# tensor-core FLOP/s, float32 FLOP/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
+L2_BYTES = 50 * 2 ** 20
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def bound(nbytes: float, flops: float, peak: float):
+    """(ms, "bytes" or "operations"): the least time for ``nbytes`` of
+    device memory traffic and ``flops`` at ``peak`` FLOP/s."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def mbconv_bound(shape, batch: int, itemsize: int = 2):
+    """The fused MBConv kernel's bound at (Cin, Ce, K, stride, H): x read
+    and z written once in the activation type, the expand weights once,
+    the depthwise weights, the four affine vectors and the SE mean in f32;
+    the expand and depthwise FLOPs at the bf16 tensor-core peak."""
+    cin, ce, k, stride, h = shape
+    ho = -(-h // stride)
+    nbytes = (itemsize * (batch * h * h * cin + batch * ho * ho * ce + cin * ce)
+              + 4 * (k * k * ce + 4 * ce + batch * ce))
+    flops = 2 * batch * h * h * cin * ce + 2 * batch * ho * ho * ce * k * k
+    return bound(nbytes, flops, BF16_FLOPS)
+
+
+def fusion_bound(name: str, batch: int, side: int, channels: int = 64,
+                 itemsize: int = 2):
+    """A BiFPN fusion node's bound: its maps read once and its output
+    written once; ~4 (top-down) or ~9 (bottom-up, with the 2x2 max) f32
+    operations an output element on the CUDA cores."""
+    n = batch * side * side * channels
+    if name == "fuse_topdown":   # big, small (half side), out
+        return bound(itemsize * (n + n // 4 + n), 4 * n, F32_FLOPS)
+    return bound(itemsize * (n + 4 * n + n + n), 9 * n, F32_FLOPS)
+
+
+def nms_bound(batch: int, k: int, d: int):
+    """Greedy NMS's bound: scores and boxes read once, the kept scores and
+    indices written once; d select-and-suppress steps of ~12 f32 operations
+    (one IoU and compare) per candidate."""
+    return bound(batch * k * (4 + 16) + batch * d * 8, 12 * batch * k * d,
+                 F32_FLOPS)
 
 
 def card_summary() -> str:
@@ -812,13 +864,22 @@ def module_segment(torch, x, we, s0, b0, w_dw, s1, b1, stride):
     return y, y.mean(dim=(2, 3))
 
 
+def rotating(sets):
+    """A callable that returns the next of ``sets`` at each call, round
+    robin: a kernel timed on it finds its inputs cold in L2 when the sets
+    together exceed it."""
+    cycle = itertools.cycle(sets)
+    return lambda: next(cycle)
+
+
 def phase_kernel_times(torch, dev):
-    """Kernel and plain times at the main path's shapes at B = 32: NMS at
-    K = 1000, D = 100; the fusion nodes of one BiFPN module in bf16, summed;
-    the fused MBConv kernel at each D0 block shape in bf16, summed over the
-    15 blocks, beside its plain version and the module path's ops. Runs
-    last: once torch.profiler has run, launches in this process are slower,
-    which would skew the serving step's times."""
+    """Kernel and plain times at the main path's shapes at B = 32, each with
+    its bound: NMS at K = 1000, D = 100; the fusion nodes of one BiFPN module
+    in bf16, summed, with each node's inputs rotated through more than the
+    L2; the fused MBConv kernel at each D0 block shape in bf16, summed over
+    the 15 blocks, beside its plain version and the module path's ops (both
+    L2-warm). Runs last: once torch.profiler has run, launches in this
+    process are slower, which would skew the serving step's times."""
     from efficientdet_tpu_torch.kernels import fusion, mbconv_kernel
     from efficientdet_tpu_torch.kernels.nms_kernel import (nms_select,
                                                            nms_select_plain)
@@ -831,10 +892,12 @@ def phase_kernel_times(torch, dev):
     ms, wall = device_ms(lambda: nms_select(scores, boxes, 0.5, d))
     plain_ms, plain_wall = device_ms(
         lambda: nms_select_plain(scores, boxes, 0.5, d), 5)
+    bound_ms, bound_by = nms_bound(b, k, d)
     log(f"nms_select B=32 K=1000 D=100: kernel {ms:.4f} ms device "
         f"({wall:.4f} ms wall), plain {plain_ms:.4f} ms device "
-        f"({plain_wall:.4f} ms wall)")
-    times["nms_select"] = (ms, plain_ms)
+        f"({plain_wall:.4f} ms wall), bound {bound_ms:.5f} ms ({bound_by})")
+    times["nms_select"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by)
 
     def rand(b, s):
         return torch.randn(b, 64, s, s, generator=gen).to(
@@ -847,42 +910,67 @@ def phase_kernel_times(torch, dev):
              D0_TOPDOWN),
             ("fuse_bottomup", fusion.fuse_bottomup,
              fusion.fuse_bottomup_plain, D0_BOTTOMUP)):
-        ms = plain_ms = 0.0
+        ms = plain_ms = bound_ms = 0.0
         for s in sides:
+            node_ms, bound_by = fusion_bound(name, 32, s)
+            set_bytes = node_ms * 1e-3 * HBM_BYTES_PER_S
+            n_sets = max(2, -(-2 * L2_BYTES // int(set_bytes)))
             if name == "fuse_topdown":
-                args = (rand(32, s), rand(32, s // 2), w2)
+                sets = [(rand(32, s), rand(32, s // 2), w2)
+                        for _ in range(n_sets)]
             else:
-                args = (rand(32, s), rand(32, 2 * s), rand(32, s), w3)
-            k_ms, k_wall = device_ms(lambda: kernel(*args), 50)
-            p_ms, p_wall = device_ms(lambda: plain(*args), 50)
-            log(f"{name} B=32 bf16 side {s}: kernel {k_ms:.4f} ms device "
-                f"({k_wall:.4f} wall), plain {p_ms:.4f} ms device "
-                f"({p_wall:.4f} wall)")
+                sets = [(rand(32, s), rand(32, 2 * s), rand(32, s), w3)
+                        for _ in range(n_sets)]
+            args = rotating(sets)
+            k_ms, k_wall = device_ms(lambda: kernel(*args()), 50)
+            p_ms, p_wall = device_ms(lambda: plain(*args()), 50)
+            log(f"{name} B=32 bf16 side {s} (L2-cold, {n_sets} input sets): "
+                f"kernel {k_ms:.4f} ms device ({k_wall:.4f} wall), plain "
+                f"{p_ms:.4f} ms device ({p_wall:.4f} wall), bound "
+                f"{node_ms:.4f} ms ({bound_by})")
             ms += k_ms
             plain_ms += p_ms
-        times[name] = (ms, plain_ms)
+            bound_ms += node_ms
+            del sets, args
+        times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by)
 
     cuda_gen = torch.Generator(device=dev).manual_seed(SEED + 5)
-    ms = plain_ms = module_ms = 0.0
+    total = dict.fromkeys(("ms", "plain_ms", "module_ms", "bound_ms"), 0.0)
+    table = []
     for shape, blocks in d0_mbconv_shapes().items():
         args = mbconv_inputs(torch, cuda_gen, 32, shape, torch.bfloat16)
         stride = shape[3]
         k_ms, k_wall = device_ms(
             lambda: mbconv_kernel.fused_expand_dw_flat(*args, stride=stride))
-        p_ms, p_wall = device_ms(
+        p_ms, _ = device_ms(
             lambda: mbconv_kernel.fused_expand_dw_flat_plain(
                 *args, stride=stride), 5)
         m_ms, m_wall = device_ms(
             lambda: module_segment(torch, *args, stride=stride))
+        b_ms, b_by = mbconv_bound(shape, 32)
+        table.append((shape, blocks, k_ms, m_ms, p_ms, b_ms, b_by))
+        for key, value in zip(total, (k_ms, p_ms, m_ms, b_ms)):
+            total[key] += blocks * value
         log(f"mbconv_fused {shape} x{blocks} B=32 bf16: kernel {k_ms:.4f} ms "
-            f"device ({k_wall:.4f} wall), plain {p_ms:.4f} ({p_wall:.4f} "
-            f"wall), module ops {m_ms:.4f} ({m_wall:.4f} wall)")
-        ms += blocks * k_ms
-        plain_ms += blocks * p_ms
-        module_ms += blocks * m_ms
-    log(f"mbconv_fused over D0's 15 blocks at B=32 bf16: kernel {ms:.4f} ms "
-        f"device, plain {plain_ms:.4f}, module ops {module_ms:.4f}")
-    times["mbconv_fused"] = (ms, plain_ms)
+            f"device ({k_wall:.4f} wall), module ops {m_ms:.4f} ({m_wall:.4f} "
+            f"wall), plain {p_ms:.4f}, bound {b_ms:.4f} ({b_by}), share "
+            f"{b_ms / k_ms:.3f}")
+    log("mbconv_fused per block shape, B=32 bf16, ms device: (Cin, Ce, K, "
+        "stride, H) x blocks | kernel | module ops | plain | bound | share "
+        "of bound | kernel below module ops")
+    for shape, blocks, k_ms, m_ms, p_ms, b_ms, b_by in table:
+        log(f"  {shape} x{blocks} | {k_ms:.4f} | {m_ms:.4f} | {p_ms:.4f} | "
+            f"{b_ms:.4f} ({b_by}) | {b_ms / k_ms:.3f} | {k_ms < m_ms}")
+    log(f"mbconv_fused over D0's 15 blocks at B=32 bf16: kernel "
+        f"{total['ms']:.4f} ms device, module ops {total['module_ms']:.4f}, "
+        f"plain {total['plain_ms']:.4f}, bound {total['bound_ms']:.4f} "
+        f"(share {total['bound_ms'] / total['ms']:.3f})")
+    # The sum's bound is bytes or operations as most of its time is.
+    bytes_ms = sum(row[1] * row[5] for row in table if row[6] == "bytes")
+    times["mbconv_fused"] = dict(
+        total, bound_by="bytes" if 2 * bytes_ms >= total["bound_ms"]
+        else "operations")
     return times
 
 
@@ -1013,36 +1101,43 @@ def main() -> int:
     if args.profile:
         phase_profile(torch, dev, cfg, state, args.out)
 
-    kernels = [
-        {"name": "nms_select", "route": "cuda",
-         "source": "efficientdet_tpu_torch/csrc/nms_select.cu",
-         "replaces": "efficientdet_tpu/kernels/nms_kernel.py:100",
-         "launches": launches["nms_select"], "max_abs_err": nms_err,
-         "ms": times["nms_select"][0], "plain_ms": times["nms_select"][1]},
-        {"name": "fuse_topdown", "route": "triton",
-         "source": "efficientdet_tpu_torch/kernels/fusion.py",
-         "replaces": "efficientdet_tpu/kernels/fusion.py:77",
-         "launches": launches["fuse_topdown"],
-         "max_abs_err": fusion_err["fuse_topdown"],
-         "ms": times["fuse_topdown"][0],
-         "plain_ms": times["fuse_topdown"][1]},
-        {"name": "fuse_bottomup", "route": "triton",
-         "source": "efficientdet_tpu_torch/kernels/fusion.py",
-         "replaces": "efficientdet_tpu/kernels/fusion.py:129",
-         "launches": launches["fuse_bottomup"],
-         "max_abs_err": fusion_err["fuse_bottomup"],
-         "ms": times["fuse_bottomup"][0],
-         "plain_ms": times["fuse_bottomup"][1]},
-        {"name": "mbconv_fused", "route": "cuda",
-         "source": "efficientdet_tpu_torch/csrc/mbconv_fused.cu",
-         "replaces": "efficientdet_tpu/kernels/mbconv_kernel.py:260, "
-                     "efficientdet_tpu/kernels/mbconv_kernel.py:336",
-         "launches": launches["fused_expand_dw_flat"]
-                     + launches["fused_expand_dw"],
-         "max_abs_err": mbconv_err,
-         "ms": times["mbconv_fused"][0],
-         "plain_ms": times["mbconv_fused"][1]},
-    ]
+    # Launches per serving step on the path that runs each kernel: one NMS;
+    # 4 top-down and 3 bottom-up nodes in each of D0's 2 BiFPN modules; one
+    # MBConv launch for each of the 15 expanded blocks.
+    per_step = {"nms_select": 1, "fuse_topdown": 8, "fuse_bottomup": 6,
+                "mbconv_fused": 15}
+    sources = {
+        "nms_select": ("cuda", "efficientdet_tpu_torch/csrc/nms_select.cu",
+                       "efficientdet_tpu/kernels/nms_kernel.py:100",
+                       launches["nms_select"], nms_err),
+        "fuse_topdown": ("triton", "efficientdet_tpu_torch/kernels/fusion.py",
+                         "efficientdet_tpu/kernels/fusion.py:77",
+                         launches["fuse_topdown"],
+                         fusion_err["fuse_topdown"]),
+        "fuse_bottomup": ("triton",
+                          "efficientdet_tpu_torch/kernels/fusion.py",
+                          "efficientdet_tpu/kernels/fusion.py:129",
+                          launches["fuse_bottomup"],
+                          fusion_err["fuse_bottomup"]),
+        "mbconv_fused": ("cuda", "efficientdet_tpu_torch/csrc/mbconv_fused.cu",
+                         "efficientdet_tpu/kernels/mbconv_kernel.py:260, "
+                         "efficientdet_tpu/kernels/mbconv_kernel.py:336",
+                         launches["fused_expand_dw_flat"]
+                         + launches["fused_expand_dw"], mbconv_err),
+    }
+    kernels = []
+    for name, (route, source, replaces, n, err) in sources.items():
+        t = times[name]
+        entry = {"name": name, "route": route, "source": source,
+                 "replaces": replaces, "launches": n,
+                 "launches_per_step": per_step[name], "max_abs_err": err,
+                 "ms": t["ms"], "plain_ms": t["plain_ms"],
+                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                 # No single PyTorch call computes any of these functions.
+                 "library_ms": None}
+        if name == "mbconv_fused":
+            entry["module_ms"] = t["module_ms"]
+        kernels.append(entry)
     log(f"training D0@512 bf16 frozen BN B={TRAIN_BATCH}: {train['ms']:.3f} "
         f"ms/step, {train['img_s']:.1f} img/s, peak memory "
         f"{train['peak_gib']:.2f} GiB; focal backward f32 within "

@@ -6,14 +6,15 @@ loss with the analytic backward, BatchNorm modes, drop-connect, AdamW with
 global-norm clipping and gradient accumulation) in PyTorch, with
 hand-written kernels for the TPU kernels of the serving path: greedy NMS
 and the fused MBConv expand + depthwise in CUDA C++ (``csrc/``), the BiFPN
-fusion nodes in Triton (``kernels/fusion.py``). The configuration and the
-host data pipeline are the JAX package's own, which are free of JAX; this
-package never imports jax.
+fusion nodes in Triton (``kernels/fusion.py``). The configuration, the
+host data pipeline and the weight bridge are the port's own copies of the
+JAX package's (``config.py``, ``data/``, ``utils/torch_bridge.py``): this
+package imports neither jax nor anything of ``efficientdet_tpu``. Modules
+are built on the CUDA card unless a ``device`` is given (``device.py``).
 """
 
-from efficientdet_tpu.config import (EFFICIENTDET, MODEL_MAP, DetectorConfig,
-                                     get_model_params, round_filters)
-
+from .config import (EFFICIENTDET, MODEL_MAP, DetectorConfig,
+                     get_model_params, round_filters)
 from .data import to_device
 from .models import EfficientDet, fused_backbone_forward
 from .train import (OptimizerConfig, PlateauScheduler, create_train_state,

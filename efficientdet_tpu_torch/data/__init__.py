@@ -1,8 +1,8 @@
-"""Data path of the PyTorch port: the JAX package's host pipeline, which is
-free of JAX (datasets, ``collate``, ``DataLoader``), and ``to_device``."""
+"""Data path of the PyTorch port: the synthetic dataset, ``collate``, the
+in-Python ``DataLoader`` and ``to_device``."""
 
-from efficientdet_tpu.data import DataLoader, SyntheticDetection, collate
-
-from .loader import to_device
+from .loader import DataLoader, to_device
+from .synthetic import SyntheticDetection
+from .transforms import collate
 
 __all__ = ["DataLoader", "SyntheticDetection", "collate", "to_device"]

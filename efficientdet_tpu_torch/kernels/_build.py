@@ -105,8 +105,12 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
         ctypes.c_void_p]
     lib.edt_nms_select.restype = ctypes.c_int
-    lib.edt_mbconv_fused.argtypes = ([ctypes.c_void_p] * 10
-                                     + [ctypes.c_int] * 14
-                                     + [ctypes.c_void_p])
-    lib.edt_mbconv_fused.restype = ctypes.c_int
+    lib.edt_mbconv_fused_f32.argtypes = ([ctypes.c_void_p] * 10
+                                         + [ctypes.c_int] * 13
+                                         + [ctypes.c_void_p])
+    lib.edt_mbconv_fused_f32.restype = ctypes.c_int
+    lib.edt_mbconv_fused_bf16.argtypes = ([ctypes.c_void_p] * 10
+                                          + [ctypes.c_int] * 20
+                                          + [ctypes.c_void_p])
+    lib.edt_mbconv_fused_bf16.restype = ctypes.c_int
     return lib

@@ -28,6 +28,7 @@ from typing import List, Sequence
 import torch
 from torch import nn
 
+from ..device import default_device
 from ..kernels import fusion
 from .layers import ConvModule, max_pool_2x2_to, upsample_nearest_to, \
     xavier_uniform_
@@ -39,6 +40,7 @@ class BiFPNModule(nn.Module):
     def __init__(self, channels: int, levels: int = 5, eps: float = 1e-4,
                  use_fusion_kernels: bool = False, device=None):
         super().__init__()
+        device = default_device(device)
         self.levels = levels
         self.eps = eps
         self.use_fusion_kernels = use_fusion_kernels
@@ -108,6 +110,7 @@ class BiFPN(nn.Module):
                  stack: int = 2, use_fusion_kernels: bool = False,
                  device=None):
         super().__init__()
+        device = default_device(device)
         self.lateral_convs = nn.ModuleList(
             ConvModule(c, out_channels, 1, device=device) for c in in_channels)
         self.stack_bifpn_convs = nn.ModuleList(

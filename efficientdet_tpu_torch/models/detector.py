@@ -5,7 +5,7 @@ Counterpart of ``efficientdet_tpu/models/detector.py``. Images go in NHWC
 ``(B, H, W, 3)``, as in the JAX package; inside, tensors are logical NCHW in
 ``channels_last`` memory. Submodules are named ``backbone``, ``neck`` and
 ``bbox_head``, so ``state_dict()`` keys are the reference schema that
-``efficientdet_tpu.utils.torch_import`` reads; anchors are a non-persistent
+``utils/torch_bridge.py`` reads; anchors are a non-persistent
 buffer and stay out of it.
 
 Parameters are float32; ``dtype`` is the compute dtype (bfloat16 for
@@ -22,8 +22,8 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from efficientdet_tpu.config import DetectorConfig
-
+from ..config import DetectorConfig
+from ..device import default_device
 from ..ops import anchors as anchor_ops
 from ..ops import losses as loss_ops
 from ..ops import nms as nms_ops
@@ -39,7 +39,8 @@ class EfficientDet(nn.Module):
     ``remat`` recomputes each MBConv block in the backward. The fusion
     kernels (``use_fusion_kernels``) have no backward: asked for gradients,
     they raise (``kernels.reject_autograd``), so a model that trains keeps
-    them off."""
+    them off. Without a ``device`` the model is built on the CUDA card, and
+    raises where there is none (``device.default_device``)."""
 
     def __init__(self, config: DetectorConfig, *,
                  dtype: torch.dtype = torch.float32,
@@ -47,7 +48,7 @@ class EfficientDet(nn.Module):
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         cfg = config.resolve()
-        device = torch.device("cpu" if device is None else device)
+        device = default_device(device)
         self.config = cfg
         self.dtype = dtype
         self.backbone = EfficientNetFeatures(cfg.backbone_name,

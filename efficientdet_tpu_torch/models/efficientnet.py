@@ -5,7 +5,7 @@ reference's detection variant: every stage after the first downsamples, so
 the 7 stage outputs form a stride 2..128 pyramid and the last five are
 P3..P7. Submodule names are the reference's (``_conv_stem``,
 ``_blocks.{i}._expand_conv``, ...), so the state_dict keys are the schema
-that ``efficientdet_tpu.utils.torch_import`` reads.
+that ``utils/torch_bridge.py`` reads.
 
 Training: the module's training mode is the JAX package's ``train`` flag.
 Drop-connect (stochastic depth) acts on the identity-skip blocks in
@@ -29,8 +29,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from efficientdet_tpu.config import BlockArgs, get_model_params, round_filters
-
+from ..config import BlockArgs, get_model_params, round_filters
+from ..device import default_device
 from .layers import (BatchNorm, ConvSame, drop_connect, he_normal_fan_out_,
                      swish)
 
@@ -44,6 +44,7 @@ class MBConvBlock(nn.Module):
                  bn_epsilon: float = 1e-3, drop_connect_rate: float = 0.0,
                  bn_mode: str = "frozen", device=None):
         super().__init__()
+        device = default_device(device)
         ba = block_args
         self.block_args = ba
         self.drop_connect_rate = drop_connect_rate
@@ -119,6 +120,7 @@ class EfficientNetFeatures(nn.Module):
     def __init__(self, model_name: str = "efficientnet-b0",
                  bn_mode: str = "frozen", remat: bool = False, device=None):
         super().__init__()
+        device = default_device(device)
         blocks_args, gp = get_model_params(model_name)
         self.remat = remat
         self.stage_repeats = [b.num_repeat for b in blocks_args]

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..device import default_device
 from ..ops.padding import same_padding
 
 
@@ -36,6 +37,7 @@ class ConvSame(nn.Module):
                  nominal_size: Optional[int] = None,
                  torch_padding: Optional[int] = None, device=None):
         super().__init__()
+        device = default_device(device)
         if nominal_size is not None:
             (lo, hi), _ = same_padding(nominal_size, kernel_size, stride)
         else:
@@ -101,7 +103,7 @@ class BatchNorm(nn.BatchNorm2d):
         if mode not in BN_MODES:
             raise ValueError(f"unknown bn mode: {mode}")
         super().__init__(num_features, eps=eps, momentum=momentum,
-                         device=device)
+                         device=default_device(device))
         self.mode = mode
         self.update_stats = True
 

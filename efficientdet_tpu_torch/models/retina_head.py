@@ -23,6 +23,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..device import default_device
 from ..ops import reductions
 from .layers import ConvModule, ConvSame, normal_
 
@@ -37,6 +38,7 @@ class RetinaHead(nn.Module):
                  feat_channels: int = 256, stacked_convs: int = 4,
                  num_anchors: int = 9, prior_prob: float = 0.01, device=None):
         super().__init__()
+        device = default_device(device)
         self.num_classes = num_classes
         self.prior_prob = prior_prob
 

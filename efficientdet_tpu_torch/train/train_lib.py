@@ -32,8 +32,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from efficientdet_tpu.config import DetectorConfig
-
+from ..config import DetectorConfig
 from ..models.detector import (EfficientDet, anchor_levels_for_model,
                                detection_loss_from_level_logits,
                                postprocess_from_scores)

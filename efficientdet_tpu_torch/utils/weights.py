@@ -1,9 +1,8 @@
 """Weight interchange with the JAX package.
 
 The port's ``state_dict()`` keys are the reference PyTorch schema that
-``efficientdet_tpu.utils.torch_import._map_detector_key`` maps to flax
-paths, so the JAX package's own bridge does the whole job in both
-directions; there is no second mapping here.
+``torch_bridge._map_detector_key`` maps to flax paths, so the bridge does
+the whole job in both directions; there is no second mapping here.
 """
 
 from __future__ import annotations
@@ -12,8 +11,7 @@ from typing import Any, Mapping
 
 from torch import nn
 
-from efficientdet_tpu.utils.torch_export import export_efficientdet
-from efficientdet_tpu.utils.torch_import import import_efficientdet
+from .torch_bridge import export_efficientdet, import_efficientdet
 
 
 def load_jax_variables(model: nn.Module, variables: Mapping[str, Any]

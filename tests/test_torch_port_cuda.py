@@ -10,6 +10,9 @@ imports jax, so run it there without the conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 """
 
+import os
+import sys
+
 import pytest
 import torch
 
@@ -26,6 +29,7 @@ SMALL = dict(num_classes=4, network="efficientdet-d0", input_size=128,
              head_feat_channels=16)
 
 pytestmark = pytest.mark.cuda
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 @pytest.fixture
@@ -110,19 +114,33 @@ def test_mbconv_kernel_rejects_bad_input(cuda, impl):
 
 @pytest.mark.parametrize("impl", ["v1", "flat"])
 @pytest.mark.parametrize("k,s", [(3, 1), (3, 2), (5, 1), (5, 2)])
-def test_mbconv_kernel_counts_and_matches_plain(cuda, impl, k, s):
-    """One launch per call; float32 within 1e-5 of the plain version at a
-    small odd-sized map with three channel tiles (Ce = 144)."""
+@pytest.mark.parametrize("dtype,cin", [(torch.float32, 24)] + [
+    (torch.bfloat16, cin) for cin in (16, 24, 40, 112, 192)])
+def test_mbconv_kernel_counts_and_matches_plain(cuda, impl, k, s, dtype,
+                                                cin):
+    """One launch per call at a small odd-sized map with Ce = 6 Cin (3 to
+    24 channel tiles). float32 (the CUDA-core kernel) within 1e-5 of the
+    plain version; bfloat16 (the tensor-core kernel, at Cin padded to 16,
+    32, 48, 112 and 192) within chip_smoke.py's limits, at most 1 ulp with
+    at most 1e-5 of the elements off, and se_mean within 1e-3."""
+    from chip_smoke import bf16_agreement
     kernel, plain = MBCONV[impl]
-    args = _mbconv_args(cuda, h=13, w=11, cin=24, ce=144, k=k)
+    x, *weights = _mbconv_args(cuda, h=13, w=11, cin=cin, ce=6 * cin, k=k)
+    x = x.to(dtype)
     before = kernel.launches
-    z, se = kernel(*args, stride=s)
+    z, se = kernel(x, *weights, stride=s)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
-    zp, sep = plain(*args, stride=s)
-    assert z.shape == zp.shape == (2, -(-13 // s), -(-11 // s), 144)
-    assert (z - zp).abs().max().item() <= 1e-5
-    assert (se - sep).abs().max().item() <= 1e-5
+    zp, sep = plain(x, *weights, stride=s)
+    assert z.shape == zp.shape == (2, -(-13 // s), -(-11 // s), 6 * cin)
+    assert z.dtype == dtype and se.dtype == torch.float32
+    if dtype == torch.float32:
+        assert (z - zp).abs().max().item() <= 1e-5
+        assert (se - sep).abs().max().item() <= 1e-5
+    else:
+        max_ulp, off, ok = bf16_agreement(z, zp)
+        assert ok, f"{max_ulp} ulp, {off} of {z.numel()} elements off"
+        assert bool(((se - sep).abs() <= 1e-3 * sep.abs() + 1e-5).all())
 
 
 def test_small_fused_backbone_step_launches_kernel(cuda):

@@ -13,6 +13,7 @@ without TF32, so float32 agrees to the stated tolerances.
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax
 import jax.numpy as jnp
@@ -197,3 +198,158 @@ def test_fused_eval_step_matches_jax(jax_model):
                                rtol=0, atol=1e-5)
     np.testing.assert_allclose(got.boxes.numpy(), np.asarray(want.boxes),
                                rtol=0, atol=1e-3)
+
+
+# ------------------------------------------------------------ the kernel's host side
+def _kernel_shapes():
+    """(Cin, Ce, K, stride, H) of D0@512's 11 distinct blocks and of
+    efficientnet-b6's widest expansion at 1408 px (what chip_smoke.py
+    drives on the card)."""
+    import chip_smoke
+    return list(chip_smoke.d0_mbconv_shapes()) + [chip_smoke.b6_widest_shape()]
+
+
+KERNEL_SHAPES = _kernel_shapes()
+
+
+def test_kernel_shapes_are_d0_and_b6():
+    assert len(KERNEL_SHAPES) == 12
+    assert KERNEL_SHAPES[0] == (16, 96, 3, 2, 256)
+    assert KERNEL_SHAPES[-1] == (576, 3456, 3, 1, 11)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", KERNEL_SHAPES)
+def test_tile_plan_fits_shared_memory(shape, dtype):
+    """At most the 232,448 bytes a block may use; the bf16 plan leaves room
+    for two blocks per SM (228 KB, 1 KB reserved per block)."""
+    plan = mk.tile_plan(*shape, dtype)
+    assert plan.smem_bytes <= 232448
+    if dtype == torch.bfloat16:
+        assert 2 * (plan.smem_bytes + 1024) <= 228 * 1024
+        assert plan.row_stride >= plan.patch_w * 2 * plan.channel_tile
+        assert (plan.stride * plan.row_stride) % 128 == 32
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", KERNEL_SHAPES)
+def test_tile_plan_covers_output_once(shape, dtype):
+    """The spatial tiles, clipped at the map's edge, cover every output
+    exactly once, and each tile's patch holds its depthwise windows."""
+    cin, ce, k, stride, h = shape
+    plan = mk.tile_plan(*shape, dtype)
+    out = -(-h // stride)
+    assert (plan.out_h, plan.out_w) == (out, out)
+    tiles_h, tiles_w = plan.tiles
+    cover = np.zeros((out, out), np.int32)
+    for tile in range(tiles_h * tiles_w):  # as the kernel places its tiles
+        r = (tile // tiles_w) * plan.tile_h
+        c = (tile % tiles_w) * plan.tile_w
+        cover[r:r + plan.tile_h, c:c + plan.tile_w] += 1
+    assert (cover == 1).all()
+    assert plan.patch_h == (plan.tile_h - 1) * stride + k
+    assert plan.patch_w == (plan.tile_w - 1) * stride + k
+    assert ce % plan.channel_tile == 0
+
+
+@pytest.mark.parametrize("shape", KERNEL_SHAPES)
+def test_tile_plan_fills_the_card_at_batch_32(shape):
+    """At least two blocks for each of the H100's 132 SMs at B=32."""
+    blocks, batch = mk.tile_plan(*shape, torch.bfloat16).grid(32)
+    assert blocks * batch >= 2 * 132
+
+
+@pytest.mark.parametrize("cin", [16, 24, 40, 80, 112, 192, 576])
+def test_packed_weights_unpack_to_w(cin):
+    """(Cin, Ce) -> (Ce, Cin_pad) bf16: unpacked it is W in bf16, and the
+    lanes from Cin to Cin_pad (a multiple of 16) are 0."""
+    ce = 6 * cin
+    w = torch.randn(cin, ce, generator=torch.Generator().manual_seed(cin))
+    packed = mk.pack_expand_weights(w)
+    cin_pad = -(-cin // 16) * 16
+    assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
+    assert tuple(packed.shape) == (ce, cin_pad)
+    assert cin_pad == mk.tile_plan(cin, ce, 3, 1, 16, torch.bfloat16).cin_pad
+    assert torch.equal(packed[:, :cin].t(), w.to(torch.bfloat16))
+    assert not packed[:, cin:].any()
+    # With the flat contract's BN0 scale folded in: bf16(W * s0), as
+    # _prepare_flat rounds it.
+    s0 = torch.rand(ce, generator=torch.Generator().manual_seed(1)) + 0.5
+    folded = mk.pack_expand_weights(w, s0)
+    want, _, _ = mk._prepare_flat(torch.zeros(1, dtype=torch.bfloat16), w,
+                                  s0, s0)
+    assert torch.equal(folded[:, :cin].t(), want)
+    assert not folded[:, cin:].any()
+
+
+@pytest.mark.parametrize("shape,want_ms,by", [
+    # x 32*256*256*16 + z 32*128*128*96 + W 16*96 bf16 = 167,775,232 bytes,
+    # w_dw 9*96 + four vectors 4*96 + se 32*96 f32 = 17,280 bytes:
+    # 167,792,512 / 3.35e12 s; 7.35 GFLOP would take 0.0074 ms.
+    ((16, 96, 3, 2, 256), 167792512 / 3.35e9, "bytes"),
+    # x 32*8*8*192 + z 32*8*8*1152 + W 192*1152 bf16 = 5,947,392 bytes,
+    # (25 + 4 + 32) * 1152 f32 = 281,088 bytes: 6,228,480 / 3.35e12 s;
+    # 1.02 GFLOP would take 0.0010 ms.
+    ((192, 1152, 5, 1, 8), 6228480 / 3.35e9, "bytes"),
+])
+def test_bound_arithmetic(shape, want_ms, by):
+    import chip_smoke
+    ms, got_by = chip_smoke.mbconv_bound(shape, 32)
+    assert got_by == by
+    assert ms == pytest.approx(want_ms, rel=1e-12)
+
+
+# ------------------------------------------------------------ rounding model
+ORDER_SLACK = 6.0 * 2.0 ** -24   # csrc/mbconv_fused.cu, tc::kOrderSlack / 1.1
+
+
+def _order_model(cin, n_px=2048, ce=48, seed=0):
+    """y = bf16(swish(acc + b)) with acc summed two ways over bf16 x and W:
+    in k order with a fused multiply-add per term, as the plain version's
+    f32 GEMM sums, and as the bf16 kernel sums, 16-term partials from the
+    tensor cores (exact, then truncated once to f32) added in k order.
+    Returns (|difference| / (u ||x|| ||w||), y bits both ways, the
+    kernel's flags)."""
+    rng = np.random.RandomState(seed)
+    bf16 = lambda a: torch.from_numpy(a.astype(np.float32)).bfloat16() \
+        .float().numpy()
+    x = bf16(rng.randn(n_px, cin))
+    w = bf16(rng.randn(cin, ce) / np.sqrt(cin) * (rng.rand(ce) + 0.5))
+    b = bf16(rng.randn(ce) * 0.5)
+    seq = np.zeros((n_px, ce), np.float32)
+    for k in range(cin):  # x * w is exact in f32: one rounding, as fmaf
+        seq = (seq + x[:, k:k + 1] * w[k]).astype(np.float32)
+    tc = np.zeros((n_px, ce), np.float32)
+    for k in range(0, cin, 16):
+        part = x[:, k:k + 16].astype(np.float64) @ w[k:k + 16]
+        trunc = part.astype(np.float32)
+        over = np.abs(trunc.astype(np.float64)) > np.abs(part)
+        trunc[over] = np.nextafter(trunc[over], np.float32(0))
+        tc = (tc + trunc).astype(np.float32)
+    norm = np.linalg.norm(x, axis=1)[:, None] * np.linalg.norm(w, axis=0)
+    ratio = np.abs(seq.astype(np.float64) - tc) / (2.0 ** -24 * norm)
+
+    def y_bits(acc):
+        v = torch.from_numpy(acc + b)
+        return F.silu(v).bfloat16().view(torch.int16).numpy(), v
+
+    want, _ = y_bits(seq)
+    got, v = y_bits(tc)
+    y = F.silu(v)
+    # The kernel's rule, swish_unsure: y within its two errors' bound of a
+    # bf16 rounding boundary (here with the exact swish, so the order's).
+    dy = 1.1 * ORDER_SLACK * torch.from_numpy(norm.astype(np.float32))
+    lo, hi = (y - dy).bfloat16(), (y + dy).bfloat16()
+    return ratio, want, got, (lo != hi).numpy()
+
+
+@pytest.mark.parametrize("cin", [16, 24, 40, 80, 112, 192])
+def test_rounding_fixups_catch_every_order_flip(cin):
+    """The two orders' difference stays well inside the kernel's slack, and
+    every y whose bf16 rounding the order changes is one the kernel flags
+    for the sequential recompute; the flags are a small share."""
+    ratio, want, got, flagged = _order_model(cin)
+    assert ratio.max() * 2.0 ** -24 < ORDER_SLACK / 2
+    flips = want != got
+    assert not (flips & ~flagged).any()
+    assert flagged.mean() < 0.03

@@ -88,6 +88,7 @@ def jax_model():
 
 def _port(variables, use_fusion_kernels=False):
     model = EfficientDet(CFG, use_fusion_kernels=use_fusion_kernels,
+                         device="cpu",
                          generator=torch.Generator().manual_seed(1)).eval()
     load_jax_variables(model, variables)
     return model.to(memory_format=torch.channels_last)
@@ -274,19 +275,19 @@ _NO_JAX = """
 import sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
+sys.modules["efficientdet_tpu"] = None
 import torch
 from efficientdet_tpu_torch import DetectorConfig, EfficientDet, make_eval_step
 cfg = DetectorConfig(num_classes=4, network="efficientdet-d0", input_size=128,
                      W_bifpn=16, D_bifpn=1, D_class=1, head_stacked_convs=1,
                      head_feat_channels=16)
 for fusion, fused_backbone in ((False, False), (True, False), (False, True)):
-    model = EfficientDet(cfg, use_fusion_kernels=fusion,
+    model = EfficientDet(cfg, use_fusion_kernels=fusion, device="cpu",
                          generator=torch.Generator().manual_seed(0)).eval()
     det = make_eval_step(model, cfg, fused_backbone=fused_backbone)(
         torch.randint(0, 256, (2, 128, 128, 3), dtype=torch.uint8))
     assert det.scores.shape == (2, 100) and bool(det.valid.any())
 
-import efficientdet_tpu.data
 import efficientdet_tpu_torch.ops.losses
 from efficientdet_tpu_torch import (create_train_state, make_loss_step,
                                     make_train_step, to_device)
@@ -294,7 +295,8 @@ from efficientdet_tpu_torch.data import SyntheticDetection, collate
 ds = SyntheticDetection(length=2, image_size=128, num_classes=4, seed=1)
 batch = to_device(collate([ds[0], ds[1]], max_boxes=8, uint8_images=True),
                   "cpu")
-model = EfficientDet(cfg, generator=torch.Generator().manual_seed(0))
+model = EfficientDet(cfg, device="cpu",
+                     generator=torch.Generator().manual_seed(0))
 state = create_train_state(model)
 metrics = make_train_step(model, cfg)(state, batch, 0)
 assert state.step == 1 and bool(torch.isfinite(metrics["loss"]))
@@ -304,10 +306,10 @@ print("NO_JAX_OK")
 
 
 def test_port_runs_with_jax_blocked():
-    """The port imports neither jax nor flax: with both blocked, it builds
-    and runs the CPU slice, with the fusion kernels and with the fused
-    MBConv backbone, and takes a train step from ``efficientdet_tpu.data``
-    batches (the JAX package's data path is free of jax)."""
+    """The port imports neither jax, flax nor the JAX package: with all
+    three blocked, it builds and runs the CPU slice, with the fusion kernels
+    and with the fused MBConv backbone, and takes a train step from its own
+    data path's batches."""
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]

@@ -108,7 +108,7 @@ def _jax_step(variables, cfg, batch, masks):
 
 
 def _port_model(variables, cfg, **kwargs):
-    model = EfficientDet(cfg, **kwargs)
+    model = EfficientDet(cfg, device="cpu", **kwargs)
     load_jax_variables(model, variables)
     return model.to(memory_format=torch.channels_last)
 
