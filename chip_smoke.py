@@ -30,6 +30,7 @@ import argparse
 import itertools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -95,6 +96,26 @@ def nms_bound(batch: int, k: int, d: int):
                  F32_FLOPS)
 
 
+NMS_KERNEL = re.compile(r"nms_kernel")
+
+
+def nms_ptxas(build_log: str):
+    """(the ``-Xptxas -v`` lines of the NMS kernel in ``build_log``, its
+    spill bytes): the lines that follow its entry, up to the next entry."""
+    lines, spilled, current = [], 0, ""
+    for line in build_log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?(\S+?)'?(?: for|$)", line)
+        if m:
+            current = m.group(1)
+        if not (NMS_KERNEL.search(current)
+                and ("ptxas" in line or "bytes" in line)):
+            continue
+        lines.append(line.strip())
+        spilled += sum(int(n) for n in re.findall(r"(\d+) bytes spill", line))
+    return lines, spilled
+
+
 def card_summary() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -102,14 +123,44 @@ def card_summary() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def device_ms(fn, iters: int = 20, traces: int = 3):
+def backlogged_ms(fn, iters: int) -> float:
+    """ms per call of ``fn()`` between two CUDA events, with the stream held
+    back by ``torch.cuda._sleep`` for twice the host's time to enqueue the
+    calls: the events then span the calls' device work back to back, not
+    the host's launch overhead (unless ``fn`` waits for the card itself)."""
+    import torch
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(1_000_000)
+    end.record()
+    torch.cuda.synchronize()
+    cycles_per_ms = 1_000_000 / start.elapsed_time(end)
+    torch.cuda._sleep(int(cycles_per_ms * (2 * host_ms + 1)))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20, traces: int = 3, attempts: int = 9):
     """(device ms, wall ms) per call of ``fn()`` after warm-up. Device ms is
     the summed duration of the device operations that a ``torch.profiler``
-    trace records, per call, the median of those of ``traces`` traces that
-    hold any: now and then a trace holds fewer device operations than ran
-    (on the card one held none, another a fifth of them; at times two of
-    three held none), and the median is immune to one such trace. Wall ms spans back-to-back calls between CUDA events, outside
-    the profiler, and so includes the host's launch overhead wherever that
+    trace records, per call, the median of ``traces`` traces that hold any,
+    out of at most ``attempts``: now and then a trace holds fewer device
+    operations than ran (on the card one held none, another a fifth of
+    them; at times two of three held none, once all three), and the median
+    is immune to one such trace. Where no trace holds any, device ms comes
+    from CUDA events behind a backlog (``backlogged_ms``) and a line says
+    so. Wall ms spans back-to-back calls between CUDA events, outside the
+    profiler, and so includes the host's launch overhead wherever that
     exceeds device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -123,20 +174,27 @@ def device_ms(fn, iters: int = 20, traces: int = 3):
         fn()
     end.record()
     torch.cuda.synchronize()
+    wall = start.elapsed_time(end) / iters
     device = []
-    for _ in range(traces):
+    for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        device.append(sum(e.time_range.end - e.time_range.start
-                          for e in prof.events()
-                          if e.device_type == torch.autograd.DeviceType.CUDA))
-    # A trace that recorded no device operation at all says nothing.
-    device = [d for d in device if d > 0]
-    check(bool(device), "the profiler recorded no device time")
-    return statistics.median(device) / 1e3 / iters, \
-        start.elapsed_time(end) / iters
+        total = sum(e.time_range.end - e.time_range.start
+                    for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        # A trace that recorded no device operation at all says nothing.
+        if total > 0:
+            device.append(total)
+        if len(device) == traces:
+            break
+    if device:
+        return statistics.median(device) / 1e3 / iters, wall
+    ms = backlogged_ms(fn, iters)
+    log(f"  ({attempts} profiler traces held no device time: {ms:.4f} ms "
+        f"per call from CUDA events behind a backlog)")
+    return ms, wall
 
 
 def bf16_ulp(x):
@@ -151,18 +209,102 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def nms_edge_cases(seed: int = SEED):
+    """{name: (scores (B, K) f32, boxes (B, K, 4) f32, D, IoU threshold)}
+    as numpy arrays from ``seed``: the inputs on which the NMS kernel's
+    order, mask or scan could part from the plain version. Shared with
+    ``tests/test_torch_port_nms.py`` (the kernel's algorithm on the CPU)
+    and ``tests/test_torch_port_cuda.py``."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    f32 = np.float32
+
+    def boxes(b, k, side=80.0, lo=5.0, hi=40.0):
+        c = rng.rand(b, k, 2) * side
+        s = rng.rand(b, k, 2) * (hi - lo) + lo
+        return np.concatenate([c - s / 2, c + s / 2], -1).astype(f32)
+
+    def scores(b, k, levels=16, padding=0.25):
+        s = (np.round(rng.rand(b, k) * levels) / levels).astype(f32)  # ties
+        s[rng.rand(b, k) < padding] = 0.0
+        return s
+
+    cases = {
+        # The serving path's order (stable descending), and its reverse.
+        "sorted": (-np.sort(-scores(2, 150), axis=1), boxes(2, 150), 20, 0.5),
+        "reverse_sorted": (np.sort(scores(2, 150), axis=1), boxes(2, 150),
+                           20, 0.5),
+        "equal_scores": (np.full((2, 70), 0.5, f32), boxes(2, 70), 30, 0.5),
+        "identical_boxes": (scores(2, 40), np.broadcast_to(
+            np.array([10, 10, 50, 60], f32), (2, 40, 4)).copy(), 10, 0.5),
+    }
+    s = scores(2, 90, padding=0.0)
+    s[rng.rand(2, 90) < 0.25] = f32(-0.0)
+    neg = rng.rand(2, 90) < 0.25
+    s[neg] = -rng.rand(int(neg.sum())).astype(f32)
+    cases["negative_and_neg_zero"] = (s, boxes(2, 90), 40, 0.5)
+    b = boxes(2, 80)
+    b[:, ::3] = b[:, ::3][..., [2, 3, 0, 1]]          # inverted
+    b[:, 1::5, 2] = b[:, 1::5, 0]                      # zero width
+    b[:, 2::7, 3] = b[:, 2::7, 1]                      # zero height
+    cases["inverted_and_zero_area"] = (scores(2, 80), b, 40, 0.5)
+    s = scores(3, 60)
+    s[1] = 0.0
+    cases["all_padding_row"] = (s, boxes(3, 60), 20, 0.5)
+    s = scores(3, 1, padding=0.0)
+    s[2] = 0.0
+    cases["k1"] = (s, boxes(3, 1), 4, 0.5)
+    cases["k33"] = (scores(2, 33), boxes(2, 33), 10, 0.5)
+    cases["k100"] = (scores(2, 100), boxes(2, 100, side=40.0), 50, 0.3)
+    cases["k130_two_word_groups"] = (scores(2, 130), boxes(2, 130), 100, 0.5)
+    s = np.zeros((2, 50), f32)
+    s[:, rng.permutation(50)[:5]] = rng.rand(5).astype(f32) + 0.1
+    cases["fewer_than_d"] = (s, boxes(2, 50), 20, 0.5)
+    # A grid of disjoint boxes: nothing is suppressed, D keeps, 48 live left.
+    g = np.arange(8, dtype=f32) * 20
+    x, y = np.meshgrid(g, g)
+    grid = np.stack([x, y, x + 10, y + 10], -1).reshape(1, 64, 4)
+    cases["exactly_d_live_left"] = (rng.rand(2, 64).astype(f32) + 0.01,
+                                    np.repeat(grid, 2, axis=0), 16, 0.5)
+    # Few suppressions and D = 600: the scan runs past its first window of
+    # 512 sorted positions, and the rows kept before the second are staged
+    # in two chunks of 256.
+    cases["past_first_window"] = (scores(2, 1200, padding=0.05),
+                                  boxes(2, 1200, side=500.0, hi=12.0), 600,
+                                  0.5)
+    return cases
+
+
 # ------------------------------------------------------------------ phases
 def phase_nms(torch, dev):
-    """Kernel A against its plain version: equal indices, bit-equal scores;
-    and torch.max's first index on ties."""
+    """Kernel A against its plain version, equal indices and bit-equal
+    scores: on every case of ``nms_edge_cases``; at the serving path's
+    shapes (B = 1 and 32, K = 1000, D = 100) with heavy ties, padding and an
+    all-padding row, in random order and in the top-K's sorted order (the
+    kernel skips its sort there); at K = 3000 and at K = 8192, the largest
+    K it takes. And torch.max's first index on ties."""
     from efficientdet_tpu_torch.kernels.nms_kernel import (nms_select,
                                                            nms_select_plain)
     gen = torch.Generator().manual_seed(SEED)
     err = 0.0
-    # The serving path's shapes (B = 1 and 32, K = 1000, D = 100), heavy ties,
-    # a short row, and K = 3000 (shared memory above the 48 KB default).
+
+    def compare(label, scores, boxes, thr, d):
+        got_s, got_i = nms_select(scores, boxes, thr, d)
+        torch.cuda.synchronize()
+        want_s, want_i = nms_select_plain(scores, boxes, thr, d)
+        check(torch.equal(got_i, want_i), f"nms indices differ: {label}")
+        check(torch.equal(got_s, want_s), f"nms scores differ: {label}")
+        log(f"nms {label}: equal, {int((got_s > 0).sum())} kept of "
+            f"{int((scores > 0).sum())} positive")
+        return (got_s - want_s).abs().max().item()
+
+    for name, (scores, boxes, d, thr) in nms_edge_cases().items():
+        b, k = scores.shape
+        err = max(err, compare(f"{name} {b}x{k}->{d} iou {thr}",
+                               torch.from_numpy(scores).to(dev),
+                               torch.from_numpy(boxes).to(dev), thr, d))
     for b, k, d in ((8, 1000, 100), (3, 37, 8), (1, 1000, 100),
-                    (32, 1000, 100), (4, 3000, 100)):
+                    (32, 1000, 100), (4, 3000, 100), (2, 8192, 100)):
         centers = torch.rand(b, k, 2, generator=gen) * 400
         sizes = torch.rand(b, k, 2, generator=gen) * 120 + 8
         boxes = torch.cat([centers - sizes / 2, centers + sizes / 2], -1)
@@ -171,15 +313,12 @@ def phase_nms(torch, dev):
         if b > 1:
             scores[-1] = 0.0                                  # all-padding row
         scores, boxes = scores.to(dev), boxes.to(dev).contiguous()
-        got_s, got_i = nms_select(scores, boxes, 0.5, d)
-        torch.cuda.synchronize()
-        want_s, want_i = nms_select_plain(scores, boxes, 0.5, d)
-        check(torch.equal(got_i, want_i), f"nms indices differ at {b, k, d}")
-        check(torch.equal(got_s, want_s), f"nms scores differ at {b, k, d}")
-        check(b == 1 or not bool((got_s[-1] > 0).any()),
-              "all-padding row emitted")
-        err = max(err, (got_s - want_s).abs().max().item())
-        log(f"nms {b}x{k}->{d}: equal, {int((got_s > 0).sum())} kept")
+        err = max(err, compare(f"{b}x{k}->{d}", scores, boxes, 0.5, d))
+        s_sorted, order = torch.sort(scores, dim=1, descending=True,
+                                     stable=True)
+        b_sorted = boxes.gather(1, order[..., None].expand(-1, -1, 4))
+        err = max(err, compare(f"{b}x{k}->{d} sorted", s_sorted.contiguous(),
+                               b_sorted.contiguous(), 0.5, d))
 
     x = torch.round(torch.randn(64, 1000, 80, generator=gen) * 2).to(
         dev, torch.bfloat16)  # many tied maxima
@@ -566,6 +705,42 @@ def phase_f32_parity(torch, dev, cfg, state):
         f"{int((got[0] > 0).sum())} kept")
 
 
+def phase_nms_model(torch, dev, cfg, state):
+    """Kernel A on the main path's own input: the bf16 serving model's
+    candidates (``nms_candidates``: threshold, stable top-K, decode, clip)
+    for seeded images at B = 1 and 32, equal to the plain version's.
+    Returns {B: (scores, boxes)} for ``phase_kernel_times``."""
+    from efficientdet_tpu_torch.kernels.nms_kernel import (nms_select,
+                                                           nms_select_plain)
+    from efficientdet_tpu_torch.ops.nms import nms_candidates
+    from efficientdet_tpu_torch.train import maybe_normalize_images
+    model = build_model(torch, cfg, dev, state, torch.bfloat16, False)
+    gen = torch.Generator().manual_seed(SEED + 11)
+    sets = {}
+    for b in STEPS:
+        images = torch.randint(0, 256, (b, IMAGE_SIZE, IMAGE_SIZE, 3),
+                               dtype=torch.uint8, generator=gen).to(dev)
+        with torch.inference_mode():
+            top_s, top_b, _ = nms_candidates(
+                *model.serving_forward(maybe_normalize_images(images)),
+                model.anchors, IMAGE_SIZE, IMAGE_SIZE, cfg.threshold,
+                cfg.pre_nms_top_k)
+            got = nms_select(top_s, top_b, cfg.iou_threshold,
+                             cfg.max_detections)
+            want = nms_select_plain(top_s, top_b, cfg.iou_threshold,
+                                    cfg.max_detections)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"NMS kernel differs from plain on the model's candidates at "
+              f"B={b}")
+        positive = (top_s > 0).sum(1).tolist()
+        log(f"nms on the model's bf16 candidates B={b}: identical; positive "
+            f"per image {min(positive)}..{max(positive)} of "
+            f"{top_s.shape[1]} (median {statistics.median(positive)}), "
+            f"{int((got[0] > 0).sum())} kept")
+        sets[b] = (top_s, top_b)
+    return sets
+
+
 TRAIN_BATCH = 64          # bench.py's train batch
 TRAIN_WARMUP, TRAIN_STEPS = 2, 10
 OVERFIT_BATCH, OVERFIT_STEPS = 8, 150
@@ -872,9 +1047,46 @@ def rotating(sets):
     return lambda: next(cycle)
 
 
-def phase_kernel_times(torch, dev):
+def nms_phase_ms(torch, scores, boxes, thr, d, iters: int = 50):
+    """The NMS kernel's device ms per launch between CUDA events around
+    ``iters`` launches queued behind a sleeping kernel (so that the host's
+    launch cost stays off the device's timeline), L2-warm; and, from the
+    kernel's own cycle counters (``nms_kernel.phase_cycles``), the slowest
+    image's cycles in the order phase, the window loads, the masks with the
+    scan (they overlap, so they share one count) and the whole kernel, that
+    ms shared out in the same proportions, the windows it walked and the
+    scan's cycles spent waiting for the mask warps."""
+    from efficientdet_tpu_torch.kernels import nms_kernel
+    counters = torch.empty((scores.shape[0], 8), dtype=torch.int64,
+                           device=scores.device)
+
+    def run():
+        nms_kernel._launch(scores, boxes, thr, d, counters)
+
+    for _ in range(WARMUP):
+        run()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)  # ~30 ms: longer than the queueing
+    start.record()
+    for _ in range(iters):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / iters
+    cycles = nms_kernel.phase_cycles(counters).cpu()
+    slow = cycles[int(cycles[:, 3].argmax())].tolist()
+    return dict(ms=ms, cycles=slow[:4], windows=slow[4], wait=slow[5], **{
+        f"{name}_ms": ms * c / slow[3]
+        for name, c in zip(("order", "load", "scan"), slow[:3])})
+
+
+def phase_kernel_times(torch, dev, nms_sets):
     """Kernel and plain times at the main path's shapes at B = 32, each with
-    its bound: NMS at K = 1000, D = 100; the fusion nodes of one BiFPN module
+    its bound: NMS at K = 1000, D = 100 on uniform random scores and boxes,
+    and on the model's candidates ``nms_sets`` at B = 1 and 32, each also
+    per phase (``nms_phase_ms``); the fusion nodes of one BiFPN module
     in bf16, summed, with each node's inputs rotated through more than the
     L2; the fused MBConv kernel at each D0 block shape in bf16, summed over
     the 15 blocks, beside its plain version and the module path's ops (both
@@ -889,15 +1101,30 @@ def phase_kernel_times(torch, dev):
     scores = torch.rand(b, k, generator=gen).to(dev)
     boxes = (torch.rand(b, k, 4, generator=gen) * 512).to(dev)
     boxes[..., 2:] += boxes[..., :2]
-    ms, wall = device_ms(lambda: nms_select(scores, boxes, 0.5, d))
-    plain_ms, plain_wall = device_ms(
-        lambda: nms_select_plain(scores, boxes, 0.5, d), 5)
-    bound_ms, bound_by = nms_bound(b, k, d)
-    log(f"nms_select B=32 K=1000 D=100: kernel {ms:.4f} ms device "
-        f"({wall:.4f} ms wall), plain {plain_ms:.4f} ms device "
-        f"({plain_wall:.4f} ms wall), bound {bound_ms:.5f} ms ({bound_by})")
-    times["nms_select"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                               bound_by=bound_by)
+    nms = {}
+    for label, (s, bx) in [("uniform B=32", (scores, boxes))] + [
+            (f"model B={n}", nms_sets[n]) for n in sorted(nms_sets)]:
+        n, kk = s.shape
+        ms, wall = device_ms(lambda: nms_select(s, bx, 0.5, d))
+        plain_ms, plain_wall = device_ms(
+            lambda: nms_select_plain(s, bx, 0.5, d), 5)
+        backlog_ms = backlogged_ms(lambda: nms_select(s, bx, 0.5, d), 20)
+        phases = nms_phase_ms(torch, s, bx, 0.5, d)
+        bound_ms, bound_by = nms_bound(n, kk, d)
+        log(f"nms_select {label} K={kk} D={d}: kernel {ms:.4f} ms device "
+            f"({wall:.4f} ms wall, {backlog_ms:.4f} ms behind a backlog), "
+            f"plain {plain_ms:.4f} ms device ({plain_wall:.4f} ms wall), "
+            f"bound {bound_ms:.5f} ms ({bound_by})")
+        log(f"  {phases['ms']:.4f} ms per launch (CUDA events); slowest "
+            f"image: order {phases['order_ms']:.4f}, window loads "
+            f"{phases['load_ms']:.4f}, masks with the scan "
+            f"{phases['scan_ms']:.4f} ms, {phases['windows']} windows; cycles "
+            f"(order, loads, masks with scan, all) {phases['cycles']}, the "
+            f"scan waiting {phases['wait']}")
+        nms[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, events_ms=phases["ms"],
+                          phases=phases)
+    times["nms_select"] = dict(nms["uniform B=32"], by_input=nms)
 
     def rand(b, s):
         return torch.randn(b, 64, s, s, generator=gen).to(
@@ -1008,9 +1235,12 @@ def profile_steps(torch, label, run, steps, out_dir):
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = busy_ms(ops) / steps
     check(busy > 0, "the profiler recorded no device time")
+    nms = sum(e.time_range.end - e.time_range.start for e in ops
+              if NMS_KERNEL.search(e.name)) / 1e3 / steps
     log(f"profile {label}: wall {wall:.3f} ms/step (profiled), device busy "
         f"{busy:.3f} ms/step, idle share {1 - busy / wall:.3f}, "
-        f"{len(ops) / steps:.0f} device ops/step")
+        f"{len(ops) / steps:.0f} device ops/step; NMS kernel {nms:.4f} "
+        f"ms/step, {nms / busy:.4f} of device busy")
     log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=20,
                                   max_name_column_width=60))
     os.makedirs(out_dir, exist_ok=True)
@@ -1079,8 +1309,13 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _build.build()
     log(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
-    log(lib.with_suffix(".log").read_text().strip()
-        if lib.with_suffix(".log").exists() else "(library was cached)")
+    build_log = (lib.with_suffix(".log").read_text().strip()
+                 if lib.with_suffix(".log").exists() else "")
+    log(build_log or "(library was cached)")
+    lines, spilled = nms_ptxas(build_log)
+    log("ptxas -v for the NMS kernel:\n" + "\n".join(lines))
+    check(bool(lines) and spilled == 0,
+          f"NMS kernel: {spilled} bytes of spills, or no ptxas lines")
 
     nms_err = phase_nms(torch, dev)
     t0 = time.perf_counter()
@@ -1094,10 +1329,11 @@ def main() -> int:
     state = seeded_state(torch, cfg, dev)
     launches = phase_serving(torch, dev, cfg, state)
     phase_f32_parity(torch, dev, cfg, state)
+    nms_sets = phase_nms_model(torch, dev, cfg, state)
     t0 = time.perf_counter()
     train = phase_train(torch, dev, cfg, state)
     log(f"training phase {time.perf_counter() - t0:.1f} s")
-    times = phase_kernel_times(torch, dev)
+    times = phase_kernel_times(torch, dev, nms_sets)
     if args.profile:
         phase_profile(torch, dev, cfg, state, args.out)
 
@@ -1137,6 +1373,8 @@ def main() -> int:
                  "library_ms": None}
         if name == "mbconv_fused":
             entry["module_ms"] = t["module_ms"]
+        if name == "nms_select":
+            entry["by_input"] = t["by_input"]
         kernels.append(entry)
     log(f"training D0@512 bf16 frozen BN B={TRAIN_BATCH}: {train['ms']:.3f} "
         f"ms/step, {train['img_s']:.1f} img/s, peak memory "

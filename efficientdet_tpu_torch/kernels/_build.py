@@ -100,10 +100,9 @@ def build() -> Path:
 def load_library() -> ctypes.CDLL:
     """Build if needed, load once per process and declare the entry points."""
     lib = ctypes.CDLL(str(build()))
-    lib.edt_nms_select.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_void_p]
+    lib.edt_nms_select.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+        + [ctypes.c_float, ctypes.c_void_p])
     lib.edt_nms_select.restype = ctypes.c_int
     lib.edt_mbconv_fused_f32.argtypes = ([ctypes.c_void_p] * 10
                                          + [ctypes.c_int] * 13

@@ -1,10 +1,13 @@
 """Greedy select-and-suppress NMS: the CUDA kernel and its plain version.
 
 Counterpart of ``efficientdet_tpu/kernels/nms_kernel.py::nms_select_pallas``.
-The kernel is ``csrc/nms_select.cu`` (one thread block per image, candidates
-resident in shared memory; its header says what bounds it on the H100).
-``nms_select_plain`` is the same function in plain PyTorch: the CPU path and
-the reference that the kernel is held against on the card.
+The kernel is ``csrc/nms_select.cu``: one block per image sorts the
+candidates by (score descending, index ascending), then walks them in
+windows of 512 sorted positions, building each window's IoU bit-mask in
+shared memory a word at a time ahead of a one-warp scan (its header says
+what bounds it on the H100). ``nms_select_plain`` is the same function in
+plain PyTorch: the CPU path and the reference that the kernel is held
+against on the card.
 
 Each of the D steps takes the first-index maximum of the remaining scores,
 emits it only if it is > 0, and then zeroes it and every candidate whose IoU
@@ -19,8 +22,18 @@ import torch
 
 from . import _build, reject_autograd
 
-# Shared memory holds 6 float planes of K values; 227 KB per block on Hopper.
+# The order phase sorts K 64-bit keys, padded to a power of two, in shared
+# memory beside the sorted scores and indices: 128 KB at K = 8192.
 MAX_CANDIDATES = 8192
+
+
+def phase_cycles(cycles: torch.Tensor) -> torch.Tensor:
+    """(B, 6) int64 from the counters ``_launch`` filled: each image's SM
+    cycles in the order phase, in loading the windows (with the OR of the
+    bits of the rows kept in earlier windows), in the windows' masks and
+    scans (which overlap) and in the whole kernel; the number of windows
+    walked; and the scan's cycles spent waiting for the mask warps."""
+    return cycles[:, :6]
 
 
 def nms_select_plain(scores: torch.Tensor, boxes: torch.Tensor,
@@ -54,10 +67,12 @@ def nms_select_plain(scores: torch.Tensor, boxes: torch.Tensor,
 def nms_select(scores: torch.Tensor, boxes: torch.Tensor,
                iou_threshold: float, max_detections: int
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Greedy NMS per image; same contract as ``nms_select_plain``.
+    """Greedy NMS per image; same contract as ``nms_select_plain``, bit for
+    bit, for unsorted scores too.
 
     A CPU tensor takes the plain version. A CUDA tensor launches the kernel
-    on the current stream, or raises on what the kernel does not take. Any
+    on the current stream, with its (B, 8) int64 cycle counters from
+    ``torch.empty``, or raises on what the kernel does not take. Any
     device raises on inputs that need a gradient (``reject_autograd``).
     ``nms_select.launches`` counts kernel launches."""
     reject_autograd("nms_select", scores, boxes)
@@ -81,6 +96,17 @@ def nms_select(scores: torch.Tensor, boxes: torch.Tensor,
     if not 0 < k <= MAX_CANDIDATES or max_detections < 1:
         raise ValueError(f"nms_select: K={k} (1..{MAX_CANDIDATES}), "
                          f"D={max_detections} (>= 1)")
+    cycles = torch.empty((b, 8), dtype=torch.int64, device=scores.device)
+    out = _launch(scores, boxes, iou_threshold, max_detections, cycles)
+    nms_select.launches += 1
+    return out
+
+
+def _launch(scores, boxes, iou_threshold, max_detections, cycles):
+    """Launches the kernel on checked inputs; ``cycles`` (B, 8) int64
+    receives its counters (``phase_cycles``). Raises when the launch
+    fails."""
+    b, k = scores.shape
     out_s = torch.empty((b, max_detections), dtype=torch.float32,
                         device=scores.device)
     out_i = torch.empty((b, max_detections), dtype=torch.int32,
@@ -88,13 +114,13 @@ def nms_select(scores: torch.Tensor, boxes: torch.Tensor,
     lib = _build.load_library()
     with torch.cuda.device(scores.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.edt_nms_select(scores.data_ptr(), boxes.data_ptr(),
-                                 out_s.data_ptr(), out_i.data_ptr(), b, k,
-                                 max_detections, float(iou_threshold), stream)
+        err = lib.edt_nms_select(
+            scores.data_ptr(), boxes.data_ptr(), out_s.data_ptr(),
+            out_i.data_ptr(), cycles.data_ptr(), b, k, max_detections,
+            float(iou_threshold), stream)
     if err != 0:
         raise RuntimeError(f"nms_select: kernel launch failed, CUDA error "
                            f"{err}")
-    nms_select.launches += 1
     return out_s, out_i
 
 

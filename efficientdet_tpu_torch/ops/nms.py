@@ -1,7 +1,8 @@
 """Fixed-shape detection post-processing: top-K, decode, greedy NMS.
 
 Counterpart of ``efficientdet_tpu/ops/nms.py`` (``Detections``,
-``select_and_suppress``, ``batched_nms_from_scores``). The greedy loop is
+``greedy_suppression_mask``, ``select_and_suppress``,
+``batched_nms_from_scores``). The greedy loop is
 ``kernels/nms_kernel.py::nms_select``: the CUDA kernel for CUDA tensors, its
 plain version for CPU tensors.
 
@@ -46,6 +47,30 @@ def _pack(out_s: torch.Tensor, out_i: torch.Tensor, boxes: torch.Tensor,
         classes=torch.where(valid, det_classes, -1).to(torch.int32),
         boxes=torch.where(valid[..., None], det_boxes, 0.0),
         valid=valid)
+
+
+def greedy_suppression_mask(boxes: torch.Tensor, scores: torch.Tensor,
+                            iou_threshold: float) -> torch.Tensor:
+    """Greedy NMS keep-mask over score-sorted candidates: (K, 4), (K,) ->
+    bool (K,), the literal K-step greedy recurrence over the K x K IoU
+    matrix.
+
+    ``boxes`` MUST already be sorted by descending score; ``scores`` only
+    drops padding (score <= 0). The IoU is ``pairwise_iou``'s, whose areas
+    are not clamped at 0, so the mask equals the select formulation
+    (``nms_select``, clamped areas) only for boxes with x2 >= x1 and
+    y2 >= y1. The CUDA kernel of ``nms_select`` builds its mask with the
+    clamped areas."""
+    k = boxes.shape[0]
+    iou = box_ops.pairwise_iou(boxes, boxes)
+    kept = torch.ones(k, dtype=torch.bool, device=boxes.device)
+    keep = torch.zeros(k, dtype=torch.bool, device=boxes.device)
+    later = torch.arange(k, device=boxes.device)
+    for idx in range(k):
+        # kept[idx] is true iff no earlier kept box suppresses idx.
+        keep[idx] = (scores[idx] > 0.0) & kept[idx]
+        kept &= ~(keep[idx] & (iou[idx] > iou_threshold) & (later > idx))
+    return keep
 
 
 def select_and_suppress(boxes: torch.Tensor, scores: torch.Tensor,

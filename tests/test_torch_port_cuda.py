@@ -44,6 +44,7 @@ def cuda():
 def test_nms_kernel_rejects_bad_input(cuda):
     scores = torch.rand(2, 10, device=cuda)
     boxes = torch.rand(2, 10, 4, device=cuda)
+    before = nms_select.launches
     with pytest.raises(TypeError):
         nms_select(scores.double(), boxes, 0.5, 5)
     with pytest.raises(ValueError, match="contiguous"):
@@ -51,6 +52,61 @@ def test_nms_kernel_rejects_bad_input(cuda):
                    0.5, 5)
     with pytest.raises(ValueError, match="shapes"):
         nms_select(scores, boxes[:, :9], 0.5, 5)
+    with pytest.raises(ValueError, match="K=8193"):
+        nms_select(torch.rand(1, 8193, device=cuda),
+                   torch.rand(1, 8193, 4, device=cuda), 0.5, 5)
+    with pytest.raises(ValueError, match="D=0"):
+        nms_select(scores, boxes, 0.5, 0)
+    assert nms_select.launches == before
+
+
+def test_nms_kernel_launch_failure_raises(cuda):
+    """K past the kernel's shared memory, past the wrapper's check: the
+    entry point refuses the launch, and the raise comes instead of a
+    result."""
+    from efficientdet_tpu_torch.kernels import nms_kernel
+    k = nms_kernel.MAX_CANDIDATES + 1
+    cycles = torch.empty((1, 8), dtype=torch.int64, device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        nms_kernel._launch(torch.rand(1, k, device=cuda),
+                           torch.rand(1, k, 4, device=cuda), 0.5, 5, cycles)
+
+
+def test_nms_kernel_matches_plain_on_edge_cases(cuda):
+    """Every case of ``chip_smoke.nms_edge_cases``: one launch each, indices
+    and scores equal to the plain version's."""
+    from chip_smoke import nms_edge_cases
+    from efficientdet_tpu_torch.kernels.nms_kernel import nms_select_plain
+    for name, (scores, boxes, d, thr) in nms_edge_cases().items():
+        s = torch.from_numpy(scores).to(cuda)
+        b = torch.from_numpy(boxes).to(cuda)
+        before = nms_select.launches
+        got = nms_select(s, b, thr, d)
+        torch.cuda.synchronize()
+        assert nms_select.launches == before + 1
+        want = nms_select_plain(s, b, thr, d)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+            name
+
+
+def test_nms_kernel_at_max_candidates(cuda):
+    """K = 8192, the most the kernel takes (128 KB of shared memory), for
+    unsorted and for sorted scores: equal to the plain version, with the
+    cycle counters filled."""
+    from efficientdet_tpu_torch.kernels import nms_kernel
+    k = nms_kernel.MAX_CANDIDATES
+    gen = torch.Generator().manual_seed(3)
+    centers = torch.rand(2, k, 2, generator=gen) * 500
+    sizes = torch.rand(2, k, 2, generator=gen) * 60 + 4
+    boxes = torch.cat([centers - sizes / 2, centers + sizes / 2], -1).to(cuda)
+    scores = torch.rand(2, k, generator=gen).to(cuda)
+    cycles = torch.zeros((2, 8), dtype=torch.int64, device=cuda)
+    for s in (scores, scores.sort(dim=1, descending=True).values):
+        want = nms_kernel.nms_select_plain(s, boxes, 0.5, 100)
+        got = nms_kernel._launch(s, boxes, 0.5, 100, cycles)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        counts = nms_kernel.phase_cycles(cycles)
+        assert bool((counts[:, :4] > 0).all() and (counts[:, 4] >= 1).all())
 
 
 def test_fusion_kernels_reject_non_channels_last(cuda):
