@@ -6,7 +6,10 @@ serving step (``efficientdet_tpu_torch.make_eval_step``, 80 classes, random
 weights from a seed) at batch 1 and 32 on three paths (plain; BiFPN fusion
 kernels; fused MBConv backbone), checks the detections, drives the D0@512
 bf16 training step (``make_train_step``: timed at batch 64, overfitting a
-batch of 8, the focal backward, the BatchNorm modes, ``remat``), and times
+batch of 8, the focal backward, the BatchNorm modes, ``remat``), drives the
+training entry point (``efficientdet_tpu_torch.train.driver``: two epochs
+at batch 32 with validation and checkpoints, a resume from the first
+checkpoint, a ``--device_normalize`` pass), and times
 the steps and the kernels: each kernel beside its plain version and its
 bound (the larger of its bytes over the H100's 3.35 TB/s and its operations
 over the peak rate of their type), the fused MBConv kernel also per block
@@ -34,6 +37,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -1020,6 +1024,161 @@ def phase_train(torch, dev, cfg, state):
     return out
 
 
+DRIVER_ARGV = ["--dataset", "synthetic", "--network", "efficientdet-d0",
+               "--bf16", "--batch_size", "32", "--synthetic_length", "128",
+               "--num_epoch", "2", "--eval_every", "1"]
+
+
+def train_state_snapshot(state):
+    """Clones of what a resume restores: the model's tensors, Adam's state
+    and learning rate, the step, the accumulation position and the
+    accumulator."""
+    opt = state.optimizer.state_dict()
+    return {"model": {k: v.clone()
+                      for k, v in state.model.state_dict().items()},
+            "opt": {i: {k: v.clone() for k, v in entry.items()}
+                    for i, entry in opt["state"].items()},
+            "lr": [g["lr"] for g in opt["param_groups"]],
+            "counts": (state.step, state.mini_step),
+            "accum": None if state.accum is None
+            else [a.clone() for a in state.accum]}
+
+
+def check_snapshots_equal(torch, got, want) -> int:
+    """Every tensor of ``got`` ``torch.equal`` to ``want``'s, and the
+    learning rate and counts equal; returns the number of tensors."""
+    check(got["model"].keys() == want["model"].keys(), "restored keys")
+    n = 0
+    for key, value in want["model"].items():
+        check(torch.equal(got["model"][key], value), f"restored {key}")
+        n += 1
+    check(got["opt"].keys() == want["opt"].keys() and len(want["opt"]) > 0,
+          "restored optimizer entries")
+    for i, entry in want["opt"].items():
+        for key, value in entry.items():
+            check(torch.equal(got["opt"][i][key], value),
+                  f"restored optimizer state {i} {key}")
+            n += 1
+    check(got["lr"] == want["lr"], f"restored lr {got['lr']} != {want['lr']}")
+    check(got["counts"] == want["counts"],
+          f"restored step {got['counts']} != {want['counts']}")
+    check((got["accum"] is None) == (want["accum"] is None), "accumulator")
+    for a, b in zip(got["accum"] or [], want["accum"] or []):
+        check(torch.equal(a, b), "restored accumulator")
+        n += 1
+    return n
+
+
+def host_batch_seconds(torch, dev, device_normalize: bool):
+    """(seconds to make and collate one batch of the driver's training set,
+    seconds to copy it to the card, batch size): the host data path the
+    driver's prefetch thread runs for every batch, timed here on its own."""
+    from efficientdet_tpu_torch.data import collate, to_device
+    from efficientdet_tpu_torch.train import driver
+    args = driver.parse_args(DRIVER_ARGV + (
+        ["--device_normalize"] if device_normalize else []))
+    ds = driver.build_dataset(args, True, IMAGE_SIZE)
+    t0 = time.perf_counter()
+    batch = collate([ds[i] for i in range(args.batch_size)], args.max_boxes,
+                    uint8_images=device_normalize)
+    t1 = time.perf_counter()
+    to_device(batch, dev)
+    torch.cuda.synchronize()
+    return t1 - t0, time.perf_counter() - t1, args.batch_size
+
+
+def phase_driver(torch, dev, train):
+    """The training entry point at D0@512 bf16, full width, on the card:
+    ``Trainer(parse_args(DRIVER_ARGV)).fit()`` (what ``main`` runs) for two
+    epochs of 128 synthetic images at batch 32, validating and saving each
+    epoch; a second run resumes from ``checkpoint_0.pth``, whose restored
+    state must be ``torch.equal`` to the first run's in memory after epoch
+    0 and whose epoch 1 must start with the first run's epoch-1 step (the
+    same batch: loss, cls and reg bit-equal, the gradient norm within 1e-4
+    relative, cuDNN's weight gradients not being bit-reproducible); then a
+    ``--device_normalize`` pass. Prints the driver's epoch img/s beside the
+    bare step's from the training phase, and the host data path's time for
+    one batch on its own. The path reaches none of the
+    port's kernels: their launch counts over it must stay 0."""
+    import math
+
+    from efficientdet_tpu_torch.kernels import fusion, mbconv_kernel
+    from efficientdet_tpu_torch.kernels.nms_kernel import nms_select
+    from efficientdet_tpu_torch.train import driver
+
+    counters = (nms_select, fusion.fuse_topdown, fusion.fuse_bottomup,
+                mbconv_kernel.fused_expand_dw_flat,
+                mbconv_kernel.fused_expand_dw)
+    for fn in counters:
+        fn.launches = 0
+
+    def finite(summary, label):
+        values = summary["epoch_loss"] + summary["val_loss"] + [
+            v for m in summary["first_step"] for v in m.values()]
+        check(all(v is not None and math.isfinite(v) for v in values),
+              f"driver {label}: non-finite losses {summary}")
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        snaps = {}
+        trainer = driver.Trainer(driver.parse_args(
+            DRIVER_ARGV + ["--save_folder", os.path.join(tmp, "a")]))
+        check(trainer.model.backbone._conv_stem.weight.is_cuda,
+              "driver model not on the card")
+        first = trainer.fit(lambda epoch, t: snaps.setdefault(
+            epoch, train_state_snapshot(t.state)))
+        finite(first, "run")
+        check(len(first["checkpoints"]) == 2, f"checkpoints {first}")
+        del trainer
+
+        resumed = driver.Trainer(driver.parse_args(
+            DRIVER_ARGV + ["--save_folder", os.path.join(tmp, "b"),
+                           "--resume", first["checkpoints"][0]]))
+        check(resumed.start_epoch == 1, f"resumed at {resumed.start_epoch}")
+        n = check_snapshots_equal(torch, train_state_snapshot(resumed.state),
+                                  snaps[0])
+        del snaps
+        second = resumed.fit()
+        finite(second, "resume")
+        got, want = second["first_step"][0], first["first_step"][1]
+        for key in ("loss", "cls_loss", "reg_loss"):
+            check(got[key] == want[key],
+                  f"resumed first step {key} {got[key]} != {want[key]}")
+        rel = abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"]
+        check(rel <= 1e-4, f"resumed first step grad_norm off by {rel}")
+        log(f"driver resume from checkpoint_0.pth: {n} tensors torch.equal "
+            f"to the state in memory after epoch 0; epoch 1's first step "
+            f"loss {got['loss']:.6f} (cls {got['cls_loss']:.6f}, reg "
+            f"{got['reg_loss']:.6f}) equal, grad_norm off by {rel:.3g}")
+        del resumed
+
+        normalized = driver.main(DRIVER_ARGV + [
+            "--device_normalize", "--save_folder", os.path.join(tmp, "c")])
+        finite(normalized, "--device_normalize")
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    check(not any(launches.values()),
+          f"kernels launched on the driver's path: {launches}")
+    for label, summary in (("float", first), ("device_normalize",
+                                              normalized)):
+        ips = summary["img_s"]
+        log(f"driver D0@512 bf16 B=32 {label}: epoch img/s "
+            f"{', '.join(f'{v:.1f}' for v in ips)}; epoch loss "
+            f"{', '.join(f'{v:.4f}' for v in summary['epoch_loss'])}, val "
+            f"loss {', '.join(f'{v:.4f}' for v in summary['val_loss'])}")
+        out[label] = ips
+        make_s, copy_s, b = host_batch_seconds(torch, dev,
+                                               label == "device_normalize")
+        log(f"host data path, one B={b} batch ({label}): samples and "
+            f"collate {make_s:.3f} s, copy to the card {copy_s:.3f} s; "
+            f"{b / (make_s + copy_s):.1f} img/s on one thread")
+    log(f"driver epoch-1 img/s: {out['float'][1]:.1f} (float batches), "
+        f"{out['device_normalize'][1]:.1f} (--device_normalize), against "
+        f"the bare train step's {train['img_s']:.1f} img/s at "
+        f"B={TRAIN_BATCH}; {card_summary()}")
+    return out
+
+
 def module_segment(torch, x, we, s0, b0, w_dw, s1, b1, stride):
     """What the module backbone runs for one fused segment, for timing:
     cuDNN expand and depthwise convs in x's dtype on channels_last maps,
@@ -1333,6 +1492,9 @@ def main() -> int:
     t0 = time.perf_counter()
     train = phase_train(torch, dev, cfg, state)
     log(f"training phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_driver(torch, dev, train)
+    log(f"driver phase {time.perf_counter() - t0:.1f} s")
     times = phase_kernel_times(torch, dev, nms_sets)
     if args.profile:
         phase_profile(torch, dev, cfg, state, args.out)

@@ -6,11 +6,14 @@ loss with the analytic backward, BatchNorm modes, drop-connect, AdamW with
 global-norm clipping and gradient accumulation) in PyTorch, with
 hand-written kernels for the TPU kernels of the serving path: greedy NMS
 and the fused MBConv expand + depthwise in CUDA C++ (``csrc/``), the BiFPN
-fusion nodes in Triton (``kernels/fusion.py``). The configuration, the
-host data pipeline and the weight bridge are the port's own copies of the
-JAX package's (``config.py``, ``data/``, ``utils/torch_bridge.py``): this
-package imports neither jax nor anything of ``efficientdet_tpu``. Modules
-are built on the CUDA card unless a ``device`` is given (``device.py``).
+fusion nodes in Triton (``kernels/fusion.py``). The training entry point
+is ``python -m efficientdet_tpu_torch.train`` (``train/driver.py``), with
+``.pth`` checkpoints that the JAX package reads (``utils/checkpoint.py``).
+The configuration, the host data pipeline (datasets, transforms, loader)
+and the weight bridge are the port's own copies of the JAX package's
+(``config.py``, ``data/``, ``utils/``): this package imports neither jax
+nor anything of ``efficientdet_tpu``. Modules are built on the CUDA card
+unless a ``device`` is given (``device.py``).
 """
 
 from .config import (EFFICIENTDET, MODEL_MAP, DetectorConfig,

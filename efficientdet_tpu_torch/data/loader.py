@@ -1,12 +1,11 @@
 """Batched loading with background prefetch, and host batches to the device.
 
 ``DataLoader`` and ``prefetch_iter`` are the port's own copies of the
-in-Python path of ``efficientdet_tpu/data/loader.py``: the same batches, in
-the same order, for the same seed. The JAX package's C++ batch pipeline
-(``native=``) is not ported yet: any value other than ``"off"`` raises; nor
-is its RAM cache of decoded images (``cache=``), which only the datasets
-that decode files use.
-``to_device`` is the counterpart of ``shard_batch``.
+in-Python path of ``efficientdet_tpu/data/loader.py``, with its RAM cache
+of decoded images: the same batches, in the same order, for the same seed.
+The JAX package's C++ batch pipeline (``native=``) is not ported yet: any
+value other than ``"off"`` raises. ``to_device`` is the counterpart of
+``shard_batch``.
 """
 
 from __future__ import annotations
@@ -26,18 +25,35 @@ class DataLoader:
 
     ``batch_size`` is the per-process batch; with ``shard_index`` and
     ``num_shards`` every process gets a disjoint slice of one same-seed
-    permutation per epoch. ``uint8_images`` collates uint8 [0, 255] images
-    for the on-device normalize."""
+    permutation per epoch, ``seed + epoch``. ``uint8_images`` collates
+    uint8 [0, 255] images for the on-device normalize.
+
+    ``image_size`` and ``flip_prob`` are the C++ pipeline's resize and flip
+    (the JAX package's ``native=``); they are kept for it, and the
+    in-Python path reads neither: the dataset's transform resizes and
+    flips. ``cache='ram'`` keeps each sample's decoded image (uint8, exact
+    for an 8-bit decode) and annotations in host memory after first use
+    and applies the dataset's random transform anew every epoch; the
+    dataset must have ``load_image``, ``load_annotations`` and
+    ``transform``."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  max_boxes: int = 100, drop_last: bool = True,
                  seed: int = 0, prefetch: int = 2,
                  shard_index: int = 0, num_shards: int = 1,
-                 native: str = "off", uint8_images: bool = False):
+                 native: str = "off", image_size: int = 0,
+                 flip_prob: float = 0.0, cache: str = "off",
+                 uint8_images: bool = False):
         if native != "off":
             raise NotImplementedError(
                 f"native={native!r}: the C++ batch pipeline is not ported "
-                "yet (ROADMAP queue A, item 14); use native='off'")
+                "yet (ROADMAP queue A, item A13); use native='off'")
+        if cache not in ("off", "ram"):
+            raise ValueError(f"cache must be 'off' or 'ram', got {cache!r}")
+        if cache == "ram" and not (hasattr(dataset, "load_image")
+                                   and hasattr(dataset, "load_annotations")):
+            raise ValueError("cache='ram' needs dataset.load_image and "
+                             "dataset.load_annotations")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -47,8 +63,16 @@ class DataLoader:
         self.prefetch = prefetch
         self.shard_index = shard_index
         self.num_shards = num_shards
+        self.image_size = image_size
+        self.flip_prob = flip_prob
         self.uint8_images = uint8_images
+        self._cache = {} if cache == "ram" else None
         self._epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        """Continue as if ``epoch`` epochs had been run (a resumed run): the
+        next epoch shuffles with ``seed + epoch + 1``."""
+        self._epoch = epoch
 
     def __len__(self) -> int:
         n = len(self.dataset) // self.num_shards
@@ -68,12 +92,34 @@ class DataLoader:
                 return
             yield idx
 
+    def _cached_sample(self, i: int) -> dict:
+        """``dataset[i]`` with the decode served from the RAM cache: the
+        datasets' {'img' float32 [0, 1], 'annot', 'scale' 1.0} through the
+        dataset's transform; uint8 batches skip the float round trip."""
+        ent = self._cache.get(i)
+        if ent is None:
+            img = self.dataset.load_image(i)
+            ann = np.asarray(self.dataset.load_annotations(i),
+                             np.float32).reshape(-1, 5)
+            ent = (np.round(img * 255.0).astype(np.uint8), ann)
+            self._cache[i] = ent
+        img8, ann = ent
+        img = img8 if self.uint8_images else img8.astype(np.float32) / 255.0
+        sample = {"img": img, "annot": ann.copy(), "scale": 1.0}
+        transform = getattr(self.dataset, "transform", None)
+        return transform(sample) if transform is not None else sample
+
     def __iter__(self) -> Iterator[dict]:
         self._epoch += 1
+        # The C++ pipeline's per-epoch flip stream (JAX package); kept so a
+        # port of it draws the same flips.
+        self._flip_rng = np.random.RandomState(self.seed * 9973 + self._epoch)
+        sample = (self.dataset.__getitem__ if self._cache is None
+                  else self._cached_sample)
 
         def batches():
             for idx in self._batch_indices():
-                yield collate([self.dataset[int(i)] for i in idx],
+                yield collate([sample(int(i)) for i in idx],
                               self.max_boxes, uint8_images=self.uint8_images)
 
         return prefetch_iter(batches(), depth=self.prefetch)

@@ -1,15 +1,128 @@
-"""Batch assembly with static shapes.
+"""Sample transforms and batch assembly with static shapes, on the host.
 
-The port's own copy of ``pad_annotations`` and ``collate`` from
-``efficientdet_tpu/data/transforms.py``: the same batches for the same
-samples.
+The port's own copy of ``efficientdet_tpu/data/transforms.py`` (its
+``Compose``, ``Normalizer``, ``Augmenter``, ``Resizer``,
+``PhotometricAugmenter``, ``train_transforms``, ``eval_transforms``,
+``pad_annotations`` and ``collate``): the same samples and batches for the
+same inputs, drawing from the same ``RandomState`` call for call.
+
+A transform takes and returns a sample dict ``{'img': (H, W, 3) float32 RGB
+(or uint8 on the device-normalize path), 'annot': (N, 5) float32 [x1, y1,
+x2, y2, label], 'scale': float}``. ``Resizer`` gives a fixed (size, size, 3)
+canvas, and is the identity for an image already at that size; ``cv2`` is
+imported only where an image is really resized.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
+
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
+
+
+class Compose:
+    def __init__(self, transforms: Sequence[Callable]):
+        self.transforms = list(transforms)
+
+    def __call__(self, sample: dict) -> dict:
+        for t in self.transforms:
+            sample = t(sample)
+        return sample
+
+
+class Normalizer:
+    """ImageNet mean/std."""
+
+    def __init__(self, mean=IMAGENET_MEAN, std=IMAGENET_STD):
+        self.mean = np.asarray(mean, dtype=np.float32)
+        self.std = np.asarray(std, dtype=np.float32)
+
+    def __call__(self, sample: dict) -> dict:
+        img = (sample["img"].astype(np.float32) - self.mean) / self.std
+        return {**sample, "img": img}
+
+
+class Augmenter:
+    """Random horizontal flip with the boxes mirrored in x; one ``rand()``
+    per sample."""
+
+    def __init__(self, flip_prob: float = 0.5,
+                 rng: Optional[np.random.RandomState] = None):
+        self.flip_prob = flip_prob
+        self.rng = rng or np.random.RandomState()
+
+    def __call__(self, sample: dict) -> dict:
+        if self.rng.rand() >= self.flip_prob:
+            return sample
+        img = sample["img"][:, ::-1, :]
+        annot = sample["annot"].copy()
+        cols = img.shape[1]
+        x1 = annot[:, 0].copy()
+        x2 = annot[:, 2].copy()
+        annot[:, 0] = cols - x2
+        annot[:, 2] = cols - x1
+        return {**sample, "img": np.ascontiguousarray(img), "annot": annot}
+
+
+class Resizer:
+    """Longest-side resize and zero pad to a square canvas; the boxes are
+    scaled and the scale is kept for mapping detections back."""
+
+    def __init__(self, size: int = 512):
+        self.size = size
+
+    def __call__(self, sample: dict) -> dict:
+        img = sample["img"]
+        h, w = img.shape[:2]
+        if (h, w) == (self.size, self.size):
+            return {**sample, "scale": 1.0}
+        import cv2
+        scale = self.size / max(h, w)
+        nh, nw = ((self.size, int(w * scale)) if h > w
+                  else (int(h * scale), self.size))
+        resized = cv2.resize(img, (nw, nh))
+        canvas = np.zeros((self.size, self.size, 3), dtype=img.dtype)
+        canvas[:nh, :nw] = resized
+        annot = sample["annot"].copy()
+        if len(annot):
+            annot[:, :4] *= scale
+        return {**sample, "img": canvas, "annot": annot, "scale": scale}
+
+
+class PhotometricAugmenter:
+    """Brightness/contrast, gamma and channel-shift jitter, each applied
+    with probability ``prob``; a uint8 image comes back as uint8."""
+
+    def __init__(self, brightness=0.25, contrast=0.2, gamma=(0.7, 1.3),
+                 shift=0.05, prob=0.5,
+                 rng: Optional[np.random.RandomState] = None):
+        self.brightness = brightness
+        self.contrast = contrast
+        self.gamma = gamma
+        self.shift = shift
+        self.prob = prob
+        self.rng = rng or np.random.RandomState()
+
+    def __call__(self, sample: dict) -> dict:
+        was_uint8 = sample["img"].dtype == np.uint8
+        img = sample["img"].astype(np.float32)
+        if was_uint8:
+            img /= 255.0
+        r = self.rng
+        if r.rand() < self.prob:
+            img = img * (1.0 + r.uniform(-self.contrast, self.contrast))
+            img = img + r.uniform(-self.brightness, self.brightness)
+        if r.rand() < self.prob:
+            img = np.clip(img, 0.0, 1.0) ** r.uniform(*self.gamma)
+        if r.rand() < self.prob:
+            img = img + r.uniform(-self.shift, self.shift, size=(1, 1, 3))
+        img = np.clip(img, 0.0, 1.0)
+        if was_uint8:
+            img = np.round(img * 255.0).astype(np.uint8)
+        return {**sample, "img": img}
 
 
 def pad_annotations(annots: Sequence[np.ndarray], max_boxes: int
@@ -45,3 +158,29 @@ def collate(samples: Sequence[dict], max_boxes: int = 100,
     annotations = pad_annotations([s["annot"] for s in samples], max_boxes)
     scales = np.array([s.get("scale", 1.0) for s in samples], dtype=np.float32)
     return {"images": images, "annotations": annotations, "scales": scales}
+
+
+def train_transforms(size: int, flip_prob: float = 0.5,
+                     photometric: bool = False,
+                     seed: Optional[int] = None,
+                     device_normalize: bool = False) -> Compose:
+    """[photometric jitter,] [Normalizer,] flip, resize, all drawing from one
+    ``RandomState(seed)``, kept as the pipeline's ``rng``.
+    ``device_normalize=True`` leaves out the Normalizer: the images stay in
+    [0, 1] (or uint8) and the train step normalizes uint8 batches on the
+    device."""
+    rng = np.random.RandomState(seed)
+    ts: List[Callable] = []
+    if photometric:
+        ts.append(PhotometricAugmenter(rng=rng))
+    ts += [] if device_normalize else [Normalizer()]
+    ts += [Augmenter(flip_prob, rng=rng), Resizer(size)]
+    pipeline = Compose(ts)
+    pipeline.rng = rng
+    return pipeline
+
+
+def eval_transforms(size: int, device_normalize: bool = False) -> Compose:
+    if device_normalize:
+        return Compose([Resizer(size)])
+    return Compose([Normalizer(), Resizer(size)])

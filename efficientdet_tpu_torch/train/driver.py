@@ -1,0 +1,397 @@
+"""The port's training entry point, ``python -m efficientdet_tpu_torch.train``.
+
+Counterpart of the JAX package's ``train.py``, step for step: metadata of a
+``.pth`` to resume recovered before the geometry is built, the datasets
+with the same seeds, the pretrained backbone, the resume, the loader, the
+epoch loss summed on the device (no host sync per step), the plateau
+schedule on it, the validation loss every ``--eval_every`` epochs, the
+printed lines, the ``MetricLogger`` records and a checkpoint per epoch
+(``utils/checkpoint.py``). It trains on the CUDA card unless given
+``--device cpu``, and raises on a host without a card. Run examples:
+
+    python -m efficientdet_tpu_torch.train --dataset synthetic \\
+        --network efficientdet-d0 --bf16 --batch_size 32 --num_epoch 2
+    python -m efficientdet_tpu_torch.train --dataset synthetic --device cpu \\
+        --input_size 128 --batch_size 2 --synthetic_length 4 --num_epoch 2
+    python -m efficientdet_tpu_torch.train --dataset VOC \\
+        --dataset_root ~/data/VOCdevkit --resume ./saved/weights/VOC/efficientdet-d0
+
+A resumed run continues the one it resumes: the loader shuffles by the
+epoch number and the training transform's random state comes back from
+the checkpoint, so the first step after a resume is the step the saved run
+took next (the JAX driver restarts both).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+from ..config import EFFICIENTDET, DetectorConfig
+from ..data import (CocoDataset, DataLoader, SyntheticDetection, VOCDetection,
+                    eval_transforms, to_device, train_transforms)
+from ..device import default_device
+from ..models import EfficientDet
+from ..utils import checkpoint as ckpt
+from ..utils.visualization import MetricLogger
+from .train_lib import (OptimizerConfig, PlateauScheduler, create_train_state,
+                        get_learning_rate, make_loss_step, make_train_step,
+                        set_learning_rate)
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description="EfficientDet training (PyTorch)")
+    p.add_argument("--config", default=None,
+                   help="YAML experiment config (CLI flags override it)")
+    p.add_argument("--dataset", default="VOC",
+                   choices=["VOC", "COCO", "synthetic"])
+    p.add_argument("--dataset_root", default="./data/VOCdevkit/",
+                   help="VOCdevkit or COCO root (relative to the working "
+                        "directory unless absolute)")
+    p.add_argument("--network", default="efficientdet-d0")
+    p.add_argument("--num_epoch", type=int, default=500)
+    p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--num_class", type=int, default=None,
+                   help="default: dataset's class count")
+    p.add_argument("--lr", "--learning-rate", type=float, default=1e-4)
+    p.add_argument("--lr_schedule", default="plateau",
+                   choices=["plateau", "none"],
+                   help="plateau = ReduceLROnPlateau(0.1, patience 3) on the "
+                        "epoch train loss (reference behavior)")
+    p.add_argument("--lr_patience", type=int, default=3)
+    p.add_argument("--weight_decay", type=float, default=1e-2)
+    p.add_argument("--grad_accumulation_steps", type=int, default=1)
+    p.add_argument("--grad_clip_norm", type=float, default=0.1)
+    p.add_argument("--input_size", type=int, default=None)
+    p.add_argument("--max_boxes", type=int, default=100)
+    p.add_argument("--pretrained_backbone", default=None,
+                   help="ImageNet EfficientNet .pth to initialize the "
+                        "backbone from: a local blob path, or 'download' to "
+                        "fetch the published blob (needs the network)")
+    p.add_argument("--resume", default=None,
+                   help="checkpoint to resume from: a checkpoint_N.pth of "
+                        "this driver, a directory of them (the newest), or "
+                        "a reference .pth (weights and epoch only). The JAX "
+                        "package's orbax directories need jax and are "
+                        "refused")
+    p.add_argument("--save_folder", default="./saved/weights/")
+    p.add_argument("--eval_every", type=int, default=5)
+    p.add_argument("--save_every", type=int, default=1)
+    p.add_argument("--bn_mode", default="frozen",
+                   choices=["frozen", "train", "sync"],
+                   help="sync needs data-parallel training, not ported yet "
+                        "(ROADMAP A15): its first train step raises")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 compute (f32 params)")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each MBConv block in the backward "
+                        "(EfficientDet(remat=True))")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to train on, in place of the JAX "
+                        "driver's --platform; 'cpu' trains on the CPU. "
+                        "Without a card, 'cuda' raises")
+    p.add_argument("--num_devices", type=int, default=None,
+                   help="data-parallel width: only 1 until data-parallel "
+                        "training is ported (ROADMAP A15); others raise")
+    p.add_argument("--spatial_shards", type=int, default=1,
+                   help="activation-height sharding of the JAX driver: only "
+                        "1 until ROADMAP A15; others raise")
+    p.add_argument("--multihost", action="store_true",
+                   help="multi-host training: raises until ROADMAP A15")
+    p.add_argument("--native_loader", default="off",
+                   choices=["auto", "on", "off"],
+                   help="C++ decode/augment pipeline: not ported yet "
+                        "(ROADMAP A13), so the default is off and auto and "
+                        "on raise")
+    p.add_argument("--device_normalize", action="store_true",
+                   help="ship raw uint8 pixels to the device and normalize "
+                        "inside the step (train_lib.maybe_normalize_images): "
+                        "4x less host->device image traffic and no host "
+                        "normalize pass")
+    p.add_argument("--cache_images", action="store_true",
+                   help="cache decoded images in host RAM after the first "
+                        "epoch (DataLoader cache='ram'); needs a dataset "
+                        "that decodes files (VOC, COCO)")
+    p.add_argument("--augment", default="basic", choices=["basic", "full"],
+                   help="basic = Normalizer/Augmenter/Resizer; full = the "
+                        "albumentations recipe, not ported yet (ROADMAP "
+                        "A13): it raises")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--synthetic_length", type=int, default=64)
+    p.add_argument("--log_every", type=int, default=50)
+    p.add_argument("--log_dir", default=None,
+                   help="write metrics.jsonl (and TensorBoard with "
+                        "--tensorboard) here")
+    p.add_argument("--tensorboard", action="store_true")
+    p.add_argument("--profile_dir", default=None,
+                   help="write a torch.profiler trace of steps 5-10 here")
+    args, _ = p.parse_known_args(argv)
+    if args.config:
+        from ..utils.yaml_config import experiment_from_yaml
+        exp = experiment_from_yaml(args.config)
+        p.set_defaults(
+            dataset=exp.dataset, dataset_root=exp.dataset_root,
+            network=exp.detector.network, num_epoch=exp.num_epoch,
+            batch_size=exp.batch_size, num_class=exp.detector.num_classes,
+            lr=exp.learning_rate, weight_decay=exp.weight_decay,
+            grad_accumulation_steps=exp.grad_accumulation_steps,
+            grad_clip_norm=exp.grad_clip_norm,
+            input_size=exp.detector.input_size, max_boxes=exp.max_boxes,
+            save_folder=exp.save_folder, bn_mode=exp.detector.bn_mode,
+            bf16=exp.bf16, remat=exp.remat, seed=exp.seed,
+            pretrained_backbone=exp.pretrained_backbone)
+    return p.parse_args(argv)
+
+
+def build_dataset(args: argparse.Namespace, train: bool, input_size: int):
+    """The training or validation dataset that ``args`` names, with the
+    JAX driver's transforms and seeds."""
+    dev_norm = getattr(args, "device_normalize", False)
+    if train and args.augment == "full":
+        raise NotImplementedError(
+            "--augment full: the albumentations recipe is not ported yet "
+            "(ROADMAP A13); use --augment basic")
+    if train:
+        tf = train_transforms(input_size, seed=args.seed,
+                              device_normalize=dev_norm)
+    else:
+        tf = eval_transforms(input_size, device_normalize=dev_norm)
+    if args.dataset == "VOC":
+        sets = ([("2007", "trainval"), ("2012", "trainval")] if train
+                else [("2007", "test")])
+        avail = [s for s in sets if os.path.isdir(
+            os.path.join(args.dataset_root, f"VOC{s[0]}"))]
+        return VOCDetection(args.dataset_root, image_sets=avail or sets,
+                            transform=tf)
+    if args.dataset == "COCO":
+        return CocoDataset(args.dataset_root,
+                           set_name="train2017" if train else "val2017",
+                           transform=tf)
+    return SyntheticDetection(length=args.synthetic_length,
+                              image_size=input_size,
+                              num_classes=args.num_class or 20,
+                              transform=tf,
+                              seed=args.seed if train else args.seed + 777)
+
+
+def _refuse_unported(args: argparse.Namespace) -> None:
+    if args.multihost:
+        raise NotImplementedError(
+            "--multihost: multi-host training is not ported yet (ROADMAP "
+            "A15)")
+    for flag, value in (("--num_devices", args.num_devices or 1),
+                        ("--spatial_shards", args.spatial_shards)):
+        if value != 1:
+            raise NotImplementedError(
+                f"{flag} {value}: the port trains on one card until "
+                "data-parallel training is ported (ROADMAP A15)")
+
+
+class Trainer:
+    """Everything the driver builds before its epoch loop, and the loop.
+
+    ``state`` is the ``TrainState``; ``fit`` runs the epochs from
+    ``start_epoch`` and returns the summary ``main`` returns."""
+
+    def __init__(self, args: argparse.Namespace):
+        _refuse_unported(args)
+        self.args = args
+        self.device = default_device(args.device)
+        input_size = (args.input_size
+                      or EFFICIENTDET[args.network]["input_size"])
+        # A .pth is self-describing: take num_class and network from its
+        # parser before any geometry is built, as the reference does.
+        pth_meta = (ckpt.load_pth_meta(args.resume)
+                    if args.resume and args.resume.endswith((".pth", ".pt"))
+                    else None)
+        if pth_meta:
+            if pth_meta.get("network") in EFFICIENTDET:
+                args.network = pth_meta["network"]
+                input_size = (args.input_size
+                              or EFFICIENTDET[args.network]["input_size"])
+            if "num_class" in pth_meta:
+                args.num_class = pth_meta["num_class"]
+            print(f"recovered from {args.resume}: "
+                  + ", ".join(f"{k}={v}" for k, v in pth_meta.items()))
+        self.train_ds = build_dataset(args, True, input_size)
+        num_classes = args.num_class or self.train_ds.num_classes()
+
+        self.cfg = DetectorConfig(num_classes=num_classes,
+                                  network=args.network,
+                                  input_size=input_size,
+                                  bn_mode=args.bn_mode).resolve()
+        model = EfficientDet(
+            self.cfg, dtype=torch.bfloat16 if args.bf16 else torch.float32,
+            remat=args.remat, device=self.device,
+            generator=torch.Generator().manual_seed(args.seed))
+        self.model = model.to(memory_format=torch.channels_last)
+        self.state = create_train_state(self.model, OptimizerConfig(
+            learning_rate=args.lr, weight_decay=args.weight_decay,
+            grad_clip_norm=args.grad_clip_norm,
+            grad_accumulation_steps=args.grad_accumulation_steps))
+        print(f"device: {self.device} | batch: {args.batch_size}")
+        if args.pretrained_backbone:
+            # Unlike the reference, which re-initializes every conv over
+            # the downloaded blob, the imported weights are kept, as in the
+            # JAX driver; --resume below overrides what it restores.
+            from ..utils.pretrained import load_pretrained_backbone
+            load_pretrained_backbone(
+                self.cfg.backbone_name, self.model,
+                path=(None if args.pretrained_backbone == "download"
+                      else args.pretrained_backbone))
+            print(f"initialized {self.cfg.backbone_name} backbone from "
+                  f"{args.pretrained_backbone}")
+        self.save_dir = os.path.join(args.save_folder, args.dataset,
+                                     args.network)
+        # The training transform's random state (flips), saved and restored
+        # with the checkpoints.
+        self.rng = getattr(self.train_ds.transform, "rng", None)
+
+        self.start_epoch = 0
+        if args.resume:
+            self.state, self.start_epoch = ckpt.restore_checkpoint(
+                args.resume, self.state, rng=self.rng)
+            print(f"resumed from {args.resume} at epoch {self.start_epoch}")
+
+        self.train_step = make_train_step(self.model, self.cfg)
+        self.loader = DataLoader(
+            self.train_ds, args.batch_size, shuffle=True,
+            max_boxes=args.max_boxes, seed=args.seed,
+            native=args.native_loader, image_size=input_size, flip_prob=0.5,
+            cache="ram" if args.cache_images else "off",
+            uint8_images=args.device_normalize)
+        self.loader.set_epoch(self.start_epoch)
+        self.scheduler = (PlateauScheduler(factor=0.1,
+                                           patience=args.lr_patience)
+                          if args.lr_schedule == "plateau" else None)
+
+        self.val_loss_step = make_loss_step(self.model, self.cfg)
+        try:
+            val_ds = build_dataset(args, False, input_size)
+            self.val_loader = DataLoader(
+                val_ds, args.batch_size, shuffle=False,
+                max_boxes=args.max_boxes, drop_last=True,
+                native=args.native_loader, image_size=input_size,
+                uint8_images=args.device_normalize)
+        except (FileNotFoundError, OSError):
+            self.val_loader = None  # no val split on disk
+        self.logger = MetricLogger(args.log_dir, tensorboard=args.tensorboard)
+        self.global_step = 0
+        self._profiler = None
+
+    def validate(self) -> Optional[float]:
+        """The mean validation loss (cls + reg) over the validation loader,
+        summed on the device and fetched once; None without one."""
+        if self.val_loader is None or len(self.val_loader) == 0:
+            return None
+        total, steps = None, 0
+        for vbatch in self.val_loader:
+            cls_loss, reg_loss = self.val_loss_step(
+                to_device(vbatch, self.device))
+            s = cls_loss + reg_loss
+            total = s if total is None else total + s
+            steps += 1
+        return float(total) / steps if steps else None
+
+    def _profile(self, before_step: bool) -> None:
+        """A torch.profiler trace of global steps 5-10 into --profile_dir."""
+        if not self.args.profile_dir:
+            return
+        if before_step and self.global_step == 5:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._profiler = torch.profiler.profile(activities=activities)
+            self._profiler.start()
+        elif not before_step and self.global_step == 10 and self._profiler:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._profiler.stop()
+            os.makedirs(self.args.profile_dir, exist_ok=True)
+            self._profiler.export_chrome_trace(
+                os.path.join(self.args.profile_dir, "trace.json"))
+            self._profiler = None
+
+    def train_epoch(self, epoch: int) -> Dict:
+        """One epoch -> {'loss': mean train loss, 'img_s', 'seconds',
+        'first_step': the metrics of its first step (host floats)}."""
+        args = self.args
+        t0 = time.time()
+        loss_sum, steps, first = None, 0, None
+        for it, batch in enumerate(self.loader):
+            batch = to_device(batch, self.device)
+            self._profile(before_step=True)
+            metrics = self.train_step(self.state, batch, args.seed + 1)
+            self._profile(before_step=False)
+            self.global_step += 1
+            steps += 1
+            loss_sum = (metrics["loss"] if loss_sum is None
+                        else loss_sum + metrics["loss"])
+            if it % args.log_every == 0:
+                m = {k: float(v) for k, v in metrics.items()}
+                first = m if it == 0 else first
+                lr_now = get_learning_rate(self.state.optimizer)
+                print(f"epoch {epoch} it {it}/{len(self.loader)} "
+                      f"loss {m['loss']:.4f} "
+                      f"(cls {m['cls_loss']:.4f} "
+                      f"reg {m['reg_loss']:.4f}) "
+                      f"lr {lr_now:.2e}")
+                self.logger.update(self.global_step, loss=m["loss"],
+                                   cls_loss=m["cls_loss"],
+                                   reg_loss=m["reg_loss"], lr=lr_now)
+        epoch_loss = float(loss_sum) / steps if steps else float("nan")
+        dt = time.time() - t0
+        ips = len(self.loader) * args.batch_size / max(dt, 1e-9)
+        print(f"epoch {epoch} done: loss {epoch_loss:.4f} "
+              f"({dt:.1f}s, {ips:.1f} img/s)")
+        self.logger.update(self.global_step, epoch=epoch,
+                           epoch_loss=epoch_loss, images_per_sec=ips)
+        return {"loss": epoch_loss, "img_s": ips, "seconds": dt,
+                "first_step": first}
+
+    def fit(self, on_epoch_end: Optional[Callable[[int, "Trainer"], None]]
+            = None) -> Dict:
+        """Epochs ``start_epoch .. num_epoch - 1``: train, validate every
+        ``eval_every``, step the plateau schedule, save every
+        ``save_every``; ``on_epoch_end(epoch, trainer)`` runs after each.
+        Returns {'epochs', 'epoch_loss', 'img_s', 'first_step',
+        'val_loss' (None where not validated), 'checkpoints'}."""
+        args = self.args
+        summary = {"epochs": [], "epoch_loss": [], "img_s": [],
+                   "first_step": [], "val_loss": [], "checkpoints": []}
+        for epoch in range(self.start_epoch, args.num_epoch):
+            out = self.train_epoch(epoch)
+            val = None
+            if args.eval_every and (epoch + 1) % args.eval_every == 0:
+                val = self.validate()
+                if val is not None:
+                    print(f"epoch {epoch} val loss: {val:.4f}")
+                    self.logger.update(self.global_step, val_loss=val)
+            if self.scheduler is not None:
+                set_learning_rate(self.state.optimizer, self.scheduler.step(
+                    out["loss"], get_learning_rate(self.state.optimizer)))
+            if (epoch + 1) % args.save_every == 0:
+                path = ckpt.save_checkpoint(self.save_dir, self.state,
+                                            self.cfg, epoch, args=args,
+                                            rng=self.rng)
+                print(f"saved checkpoint -> {path}")
+                summary["checkpoints"].append(path)
+            summary["epochs"].append(epoch)
+            summary["epoch_loss"].append(out["loss"])
+            summary["img_s"].append(out["img_s"])
+            summary["first_step"].append(out["first_step"])
+            summary["val_loss"].append(val)
+            if on_epoch_end is not None:
+                on_epoch_end(epoch, self)
+        self.logger.close()
+        return summary
+
+
+def main(argv: Optional[List[str]] = None) -> Dict:
+    """Parse ``argv`` (default: the command line), train, and return the
+    summary of ``Trainer.fit``."""
+    return Trainer(parse_args(argv)).fit()

@@ -260,13 +260,22 @@ def make_eval_step(model: EfficientDet, cfg: DetectorConfig,
     """(images (B, H, W, 3), uint8 or normalized float) -> Detections, on the
     images' device, without autograd.
 
+    The step serves in eval mode, as the JAX package's serves with
+    ``train=False``: where any module of ``model`` is in training mode (a
+    fresh module, or one a train step left so), it puts the model in eval
+    mode first, so no drop-connect is drawn and no BatchNorm uses or moves
+    batch statistics.
+
     ``fused_backbone=True`` runs the backbone through the fused MBConv kernel
     (``models/fused_serving.py``), reading the same weights; it needs frozen
     BN (eval) and an even input size."""
     cfg = cfg.resolve()
+    modules = list(model.modules())
 
     @torch.inference_mode()
     def eval_step(images: torch.Tensor) -> Detections:
+        if any(m.training for m in modules):
+            model.eval()
         images = maybe_normalize_images(images)
         if fused_backbone:
             scores, classes, box_deltas = model.serving_from_features(

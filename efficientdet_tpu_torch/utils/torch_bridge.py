@@ -1,8 +1,10 @@
-"""JAX variables trees <-> reference PyTorch state_dicts, in numpy.
+"""JAX variables trees <-> reference PyTorch state_dicts, in numpy, and the
+reference ``.pth`` blobs.
 
 The port's own copy of the parts of ``efficientdet_tpu/utils/torch_import.py``
-and ``torch_export.py`` that ``utils/weights.py`` uses, so that the port
-imports nothing of the JAX package. ``_map_detector_key`` is the bijection
+and ``torch_export.py`` that ``utils/weights.py``, ``utils/checkpoint.py``
+and ``utils/pretrained.py`` use, so that the port imports nothing of the
+JAX package. ``_map_detector_key`` is the bijection
 between the reference state_dict keys (which are the port's) and flax tree
 paths: torch conv weights are OIHW, flax kernels HWIO (transpose
 (2, 3, 1, 0) and back); BatchNorm weight/bias/running_mean/running_var map
@@ -12,6 +14,7 @@ every mapped leaf must match in shape.
 
 from __future__ import annotations
 
+import argparse
 from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
@@ -159,3 +162,39 @@ def export_efficientdet(variables: Mapping[str, Any],
                 f"vs torch {tuple(tensor.shape)}")
         out[key] = torch.from_numpy(np.ascontiguousarray(value))
     return out
+
+
+def import_efficientnet(state_dict: Mapping[str, Any], model) -> Any:
+    """Load a bare ImageNet EfficientNet state_dict (reference keys such as
+    ``_conv_stem.weight``) into the port's ``model.backbone``, in place;
+    returns ``model``. The unused classifier head (``_conv_head``, ``_bn1``,
+    ``_fc``) is dropped, an unrecognized key raises ``KeyError`` and a
+    shape mismatch raises, as in the JAX package. Only the backbone's
+    tensors named in ``state_dict`` change."""
+    kept = {k: v for k, v in state_dict.items()
+            if _map_backbone_key(k) is not None}
+    result = model.backbone.load_state_dict(kept, strict=False)
+    if result.unexpected_keys:
+        raise KeyError(f"not in the backbone: {result.unexpected_keys}")
+    return model
+
+
+def strip_module_prefix(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    """Remove DataParallel's ``module.`` prefix."""
+    return {(k[len("module."):] if k.startswith("module.") else k): v
+            for k, v in state_dict.items()}
+
+
+def load_torch_checkpoint(path: str):
+    """``torch.load`` a reference or port checkpoint on the CPU; returns the
+    raw object: a bare state_dict (a pretrained backbone) or the training
+    blob ``{'epoch', 'parser', 'state_dict', ...}``.
+
+    It loads with ``weights_only=True``, the default of torch >= 2.6, and
+    lets through the one class that the reference blob pickles besides
+    tensors and containers, its ``parser``, an ``argparse.Namespace``
+    (``torch.serialization.safe_globals``). So a blob holding any other
+    class is refused rather than unpickled."""
+    import torch
+    with torch.serialization.safe_globals([argparse.Namespace]):
+        return torch.load(path, map_location="cpu", weights_only=True)

@@ -301,6 +301,17 @@ state = create_train_state(model)
 metrics = make_train_step(model, cfg)(state, batch, 0)
 assert state.step == 1 and bool(torch.isfinite(metrics["loss"]))
 assert all(bool(torch.isfinite(v)) for v in make_loss_step(model, cfg)(batch))
+
+import os, runpy, tempfile
+with tempfile.TemporaryDirectory() as out:
+    sys.argv = ["efficientdet_tpu_torch.train", "--dataset", "synthetic",
+                "--device", "cpu", "--input_size", "128", "--batch_size", "2",
+                "--synthetic_length", "2", "--num_epoch", "1",
+                "--eval_every", "1", "--save_folder", out]
+    runpy.run_module("efficientdet_tpu_torch.train", run_name="__main__",
+                     alter_sys=True)
+    assert os.path.isfile(os.path.join(out, "synthetic", "efficientdet-d0",
+                                       "checkpoint_0.pth"))
 print("NO_JAX_OK")
 """
 
@@ -308,9 +319,13 @@ print("NO_JAX_OK")
 def test_port_runs_with_jax_blocked():
     """The port imports neither jax, flax nor the JAX package: with all
     three blocked, it builds and runs the CPU slice, with the fusion kernels
-    and with the fused MBConv backbone, and takes a train step from its own
-    data path's batches."""
+    and with the fused MBConv backbone, takes a train step from its own
+    data path's batches, and ``python -m efficientdet_tpu_torch.train``
+    trains an epoch on the CPU and writes its checkpoint."""
+    # One intra-op thread: beside the other test workers, a process of one
+    # thread per core spins in its thread barriers and slows many times.
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT,
-                          capture_output=True, text=True, timeout=120)
+                          capture_output=True, text=True, timeout=120,
+                          env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NO_JAX_OK" in proc.stdout

@@ -2,13 +2,18 @@
 and the port builds on the CUDA card unless told otherwise.
 
 ``efficientdet_tpu_torch`` imports nothing of ``efficientdet_tpu``: it
-keeps its own configuration (``config.py``), data path (``data/``) and
-weight bridge (``utils/torch_bridge.py``). Each is held here against the
-module it copies, on the same inputs: field by field, sample by sample,
-batch by batch and leaf by leaf.
+keeps its own configuration (``config.py``), data path (``data/``: the
+datasets, transforms and loader), weight bridge (``utils/torch_bridge.py``),
+YAML experiment configs (``utils/yaml_config.py``) and metric logger
+(``utils/visualization.py``). Each is held here against the module it
+copies, on the same inputs: field by field, sample by sample, batch by
+batch, leaf by leaf and record by record.
 """
 
 import dataclasses
+import glob
+import json
+import os
 
 import numpy as np
 import pytest
@@ -19,6 +24,8 @@ import jax
 from efficientdet_tpu import config as jax_config
 from efficientdet_tpu import data as jax_data
 from efficientdet_tpu.utils import torch_export, torch_import
+from efficientdet_tpu.utils import visualization as jax_visualization
+from efficientdet_tpu.utils import yaml_config as jax_yaml_config
 from efficientdet_tpu_torch import EfficientDet
 from efficientdet_tpu_torch import config as port_config
 from efficientdet_tpu_torch import data as port_data
@@ -26,10 +33,12 @@ from efficientdet_tpu_torch.models.bifpn import BiFPN
 from efficientdet_tpu_torch.models.efficientnet import EfficientNetFeatures
 from efficientdet_tpu_torch.models.layers import BatchNorm, ConvSame
 from efficientdet_tpu_torch.models.retina_head import RetinaHead
-from efficientdet_tpu_torch.utils import torch_bridge
+from efficientdet_tpu_torch.utils import torch_bridge, visualization
+from efficientdet_tpu_torch.utils import yaml_config
 from efficientdet_tpu_torch.utils.weights import (load_jax_variables,
                                                   to_jax_variables)
-from test_torch_port_slice import CFG, jax_model  # noqa: F401
+from test_torch_port_driver import VOC_XML, _coco_tree, _voc_tree
+from test_torch_port_slice import CFG, ROOT, jax_model  # noqa: F401
 
 NETWORKS = [f"efficientdet-d{i}" for i in range(8)]
 BACKBONES = [f"efficientnet-b{i}" for i in range(8)]
@@ -118,8 +127,179 @@ def test_data_loader_as_jax(shuffle, drop_last, shard):
 @pytest.mark.parametrize("native", ["auto", "on"])
 def test_data_loader_refuses_native_pipeline(native):
     port, _ = _datasets()
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="A13"):
         port_data.DataLoader(port, batch_size=2, native=native)
+
+
+def _raw_samples(dtype):
+    """Five samples of mixed sizes (square at the canvas size, landscape,
+    portrait, one without boxes), float [0, 1] or uint8 images."""
+    rng = np.random.RandomState(21)
+    out = []
+    for i, (h, w) in enumerate([(32, 32), (40, 56), (60, 36), (32, 32),
+                                (24, 50)]):
+        img = rng.rand(h, w, 3).astype(np.float32)
+        if dtype == np.uint8:
+            img = np.round(img * 255).astype(np.uint8)
+        n = 0 if i == 3 else 2
+        x1, y1 = rng.rand(n) * w / 2, rng.rand(n) * h / 2
+        annot = np.stack([x1, y1, x1 + w / 3, y1 + h / 3,
+                          rng.randint(0, 5, n)], 1).astype(np.float32)
+        out.append({"img": img, "annot": annot.reshape(-1, 5), "scale": 1.0})
+    return out
+
+
+@pytest.mark.parametrize("device_normalize", [False, True])
+@pytest.mark.parametrize("photometric", [False, True])
+def test_transforms_as_jax(photometric, device_normalize):
+    """``train_transforms`` over a stream of samples under one seed (the
+    flips and the photometric draws consume the same RandomState), and
+    ``eval_transforms``: sample by sample equal, images at their dtype."""
+    dtype = np.uint8 if device_normalize else np.float32
+    kw = dict(photometric=photometric, seed=13,
+              device_normalize=device_normalize)
+    got_tf = port_data.train_transforms(32, **kw)
+    want_tf = jax_data.train_transforms(32, **kw)
+    evals = (port_data.eval_transforms(32, device_normalize=device_normalize),
+             jax_data.eval_transforms(32, device_normalize=device_normalize))
+    for _ in range(3):
+        for sample in _raw_samples(dtype):
+            for got, want in ((got_tf(dict(sample)), want_tf(dict(sample))),
+                              (evals[0](dict(sample)),
+                               evals[1](dict(sample)))):
+                assert got.keys() == want.keys()
+                assert got["img"].dtype == want["img"].dtype
+                assert got["img"].shape == (32, 32, 3)
+                for key in want:
+                    np.testing.assert_array_equal(got[key], want[key],
+                                                  err_msg=key)
+    # Both random streams were consumed alike, call for call.
+    assert got_tf.rng is got_tf.transforms[-2].rng
+    np.testing.assert_array_equal(got_tf.rng.rand(4),
+                                  want_tf.transforms[-2].rng.rand(4))
+
+
+@pytest.mark.parametrize("keep_difficult", [False, True])
+def test_parse_voc_xml_as_jax(tmp_path, keep_difficult):
+    path = tmp_path / "a.xml"
+    path.write_text(VOC_XML.format(x=10, y=20, y2=44))
+    got = port_data.parse_voc_xml(str(path), keep_difficult)
+    want = jax_data.parse_voc_xml(str(path), keep_difficult)
+    assert got.dtype == want.dtype and got.shape == (2 + keep_difficult, 5)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("transform", [None, "eval"])
+def test_voc_dataset_as_jax(tmp_path, transform):
+    root = str(_voc_tree(tmp_path))
+    sets = [("2007", "trainval"), ("2012", "trainval")]
+    got = port_data.VOCDetection(root, image_sets=sets, transform=(
+        port_data.eval_transforms(64) if transform else None))
+    want = jax_data.VOCDetection(root, image_sets=sets, transform=(
+        jax_data.eval_transforms(64) if transform else None))
+    assert len(got) == len(want) == 5
+    assert port_data.VOC_CLASSES == jax_data.VOC_CLASSES
+    assert got.num_classes() == want.num_classes()
+    for i in range(len(want)):
+        assert got.image_path(i) == want.image_path(i)
+        np.testing.assert_array_equal(got.load_annotations(i),
+                                      want.load_annotations(i))
+        for key, value in want[i].items():
+            np.testing.assert_array_equal(got[i][key], value, err_msg=key)
+    assert got.label_to_name(11) == want.label_to_name(11) == "dog"
+
+
+@pytest.mark.parametrize("split", ["train2017", "val2017"])
+def test_coco_dataset_as_jax(tmp_path, split):
+    """Labels remapped by sorted category id, crowd boxes skipped, xywh to
+    xyxy, images and aspect ratios as in the JAX package."""
+    root = str(_coco_tree(tmp_path))
+    got = port_data.CocoDataset(root, set_name=split,
+                                transform=port_data.eval_transforms(64))
+    want = jax_data.CocoDataset(root, set_name=split,
+                                transform=jax_data.eval_transforms(64))
+    assert len(got) == len(want) > 0
+    assert got.num_classes() == want.num_classes() == 2
+    assert got.label_to_coco_label == want.label_to_coco_label
+    assert got.coco_label_to_label == want.coco_label_to_label
+    for i in range(len(want)):
+        assert got.image_aspect_ratio(i) == want.image_aspect_ratio(i)
+        assert got.load_annotations(i).shape == (2, 5)
+        np.testing.assert_array_equal(got.load_annotations(i),
+                                      want.load_annotations(i))
+        for key, value in want[i].items():
+            np.testing.assert_array_equal(got[i][key], value, err_msg=key)
+    assert got.label_to_name(1) == want.label_to_name(1) == "dog"
+
+
+@pytest.mark.parametrize("uint8_images", [False, True])
+def test_ram_cache_batches_as_jax(tmp_path, uint8_images):
+    """``cache='ram'`` over a VOC tree with the random training transform:
+    three epochs of batches equal to the JAX loader's (the first decodes,
+    the later ones read the cache). With float images they also equal the
+    uncached loader's; uint8 ones are resized in uint8, as in the JAX
+    package, so they differ from a float resize by rounding."""
+    root = str(_voc_tree(tmp_path))
+    sets = [("2007", "trainval"), ("2012", "trainval")]
+
+    def loader(pkg, cache):
+        ds = pkg.VOCDetection(root, image_sets=sets,
+                              transform=pkg.train_transforms(
+                                  48, seed=2, device_normalize=uint8_images))
+        return pkg.DataLoader(ds, batch_size=2, max_boxes=6, seed=4,
+                              cache=cache, uint8_images=uint8_images,
+                              native="off")
+
+    got, want, plain = (loader(port_data, "ram"), loader(jax_data, "ram"),
+                        loader(port_data, "off"))
+    for _ in range(3):
+        for g, w, p in zip(list(got), list(want), list(plain)):
+            for key in w:
+                assert g[key].dtype == w[key].dtype
+                np.testing.assert_array_equal(g[key], w[key], err_msg=key)
+                if not uint8_images:
+                    np.testing.assert_array_equal(g[key], p[key],
+                                                  err_msg=key)
+    assert 4 <= len(got._cache) <= 5  # two batches of two per epoch
+
+
+def test_ram_cache_needs_a_decoding_dataset():
+    port, _ = _datasets()
+    with pytest.raises(ValueError, match="load_image"):
+        port_data.DataLoader(port, batch_size=2, cache="ram")
+    with pytest.raises(ValueError, match="'off' or 'ram'"):
+        port_data.DataLoader(port, batch_size=2, cache="disk")
+
+
+# ------------------------------------------------------ experiment configs
+@pytest.mark.parametrize("path", sorted(glob.glob(os.path.join(
+    ROOT, "configs", "*.yaml"))), ids=os.path.basename)
+def test_experiment_from_yaml_as_jax(path):
+    got = yaml_config.experiment_from_yaml(path)
+    want = jax_yaml_config.experiment_from_yaml(path)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.detector.resolve() == port_config.DetectorConfig(
+        **dataclasses.asdict(want.detector.resolve()))
+
+
+def test_metric_logger_records_as_jax(tmp_path):
+    """The same JSONL records, apart from the clock (``time``,
+    ``steps_per_sec``), and the same running means."""
+    loggers = (visualization.MetricLogger(str(tmp_path / "port")),
+               jax_visualization.MetricLogger(str(tmp_path / "jax")))
+    for logger in loggers:
+        logger.update(1, loss=2.5, cls_loss=np.float32(1.25), lr=1e-4)
+        logger.update(2, loss=1.5, cls_loss=1.0, lr=1e-4)
+        logger.update(2, epoch=0, epoch_loss=2.0, images_per_sec=12.5)
+        logger.close()
+    got, want = ([json.loads(line) for line in open(tmp_path / d /
+                                                    "metrics.jsonl")]
+                 for d in ("port", "jax"))
+    clock = ("time", "steps_per_sec")
+    assert [{k: v for k, v in r.items() if k not in clock} for r in got] == \
+        [{k: v for k, v in r.items() if k not in clock} for r in want]
+    assert [set(r) for r in got] == [set(r) for r in want]
+    assert loggers[0].mean("loss") == loggers[1].mean("loss") == 2.0
 
 
 # ------------------------------------------------------------ weight bridge

@@ -9,10 +9,12 @@ optimizer that hands back the raw gradients as its state, so every
 parameter gradient is compared. Drop-connect draws from different RNGs on
 the two sides, so the test patches both ``drop_connect`` functions to apply
 the same numpy masks. The optimizer, ``PlateauScheduler``, ``remat`` and
-the kernels' refusal of gradients are covered too. JAX runs at ``highest``
-matmul precision and torch without TF32.
+the kernels' refusal of gradients are covered too, and so is the eval
+step's own switch to eval mode on a model left in training mode. JAX runs
+at ``highest`` matmul precision and torch without TF32.
 """
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -32,8 +34,8 @@ from efficientdet_tpu.train import train_lib as jax_train
 from efficientdet_tpu.utils.torch_import import import_efficientdet
 from efficientdet_tpu_torch import (EfficientDet, OptimizerConfig,
                                     PlateauScheduler, create_train_state,
-                                    make_loss_step, make_train_step,
-                                    to_device)
+                                    make_eval_step, make_loss_step,
+                                    make_train_step, to_device)
 from efficientdet_tpu_torch.kernels import fusion, mbconv_kernel, nms_kernel
 from efficientdet_tpu_torch.models import efficientnet as pt_efficientnet
 from efficientdet_tpu_torch.train import (TrainState, get_learning_rate,
@@ -215,6 +217,70 @@ def test_loss_step_matches_jax(jax_model):
     assert not port.training and not got[0].requires_grad
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.item(), float(w), rtol=1e-4)
+
+
+# ------------------------------------------------------------ eval-step mode
+@pytest.fixture(scope="module")
+def jax_eval_steps():
+    """JAX's jitted eval step per BN mode, compiled once each."""
+    steps = {}
+
+    def get(cfg):
+        if cfg.bn_mode not in steps:
+            steps[cfg.bn_mode] = jax.jit(jax_train.make_eval_step(
+                JaxEfficientDet(config=cfg), cfg))
+        return steps[cfg.bn_mode]
+
+    return get
+
+
+def _running_stats(model):
+    return {k: v.clone() for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+@pytest.mark.parametrize("after", ["fresh", "train_step"])
+@pytest.mark.parametrize("bn_mode", ["frozen", "train"])
+def test_eval_step_serves_in_eval_mode(jax_model, jax_eval_steps, bn_mode,
+                                       after):
+    """A model in training mode (freshly built, or just after a train step)
+    serves as in eval mode: two eval-step calls are bit-equal to the step
+    on an eval-mode copy, leave the running statistics as they were, and
+    match JAX's eval step on the same weights to the serving slice's
+    tolerance (valid and classes equal, scores within 1e-5, boxes within
+    1e-3 px)."""
+    _, variables = jax_model
+    cfg = dataclasses.replace(CFG, bn_mode=bn_mode)
+    model = _port_model(variables, cfg)
+    if after == "train_step":
+        make_train_step(model, cfg)(create_train_state(model),
+                                    to_device(_batch(), "cpu"), SEED)
+    assert model.training
+    reference = copy.deepcopy(model).eval()
+    stats = _running_stats(model)
+    images = torch.from_numpy(np.random.RandomState(12).randint(
+        0, 256, size=(2, SIZE, SIZE, 3)).astype(np.uint8))
+    step = make_eval_step(model, cfg)
+    got = [step(images), step(images)]
+    want = make_eval_step(reference, cfg)(images)
+    for det in got:
+        for name in ("valid", "classes", "scores", "boxes"):
+            assert torch.equal(getattr(det, name), getattr(want, name)), name
+    after_stats = _running_stats(model)
+    assert all(torch.equal(after_stats[k], v) for k, v in stats.items())
+
+    jax_vars = to_jax_variables(model, jax.tree.map(
+        np.zeros_like, unfreeze(variables)))
+    jax_det = jax_eval_steps(cfg)(jax_vars, jnp.asarray(images.numpy()))
+    assert int(want.valid.sum()) > 20
+    for name in ("valid", "classes"):
+        np.testing.assert_array_equal(getattr(want, name).numpy(),
+                                      np.asarray(getattr(jax_det, name)),
+                                      err_msg=name)
+    np.testing.assert_allclose(want.scores.numpy(), np.asarray(jax_det.scores),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(want.boxes.numpy(), np.asarray(jax_det.boxes),
+                               rtol=0, atol=1e-3)
 
 
 # ------------------------------------------------------------------ optimizer
