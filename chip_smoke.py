@@ -9,7 +9,10 @@ bf16 training step (``make_train_step``: timed at batch 64, overfitting a
 batch of 8, the focal backward, the BatchNorm modes, ``remat``), drives the
 training entry point (``efficientdet_tpu_torch.train.driver``: two epochs
 at batch 32 with validation and checkpoints, a resume from the first
-checkpoint, a ``--device_normalize`` pass), and times
+checkpoint, a ``--device_normalize`` pass), drives the evaluation and demo
+entry points (``efficientdet_tpu_torch.eval.driver`` at batch 8 and 32,
+with and without the fused backbone, the card's f32 APs against the CPU's,
+and ``efficientdet_tpu_torch.demo.Detect``), and times
 the steps and the kernels: each kernel beside its plain version and its
 bound (the larger of its bytes over the H100's 3.35 TB/s and its operations
 over the peak rate of their type), the fused MBConv kernel also per block
@@ -44,6 +47,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 IMAGE_SIZE = 512
 STEPS = {1: 40, 32: 16}   # timed serving steps per batch size and path
+# Every batch the main paths give the kernels: the serving step's 1 and 32,
+# and the eval driver's default 8 (eval.py's).
+MAIN_BATCHES = (1, 8, 32)
 ROUNDS = 4                # alternating rounds the steps are split into
 WARMUP = 3
 
@@ -459,15 +465,15 @@ def unrounded_plain(mk, prepare, x, we, s0, b0, w_dw, s1, b1, stride):
 
 def phase_mbconv(torch, dev):
     """The fused MBConv kernel, through both wrappers, against their plain
-    versions at D0@512's 11 block shapes at B = 1 and 32 (the serving path's
-    batches) and efficientnet-b6's widest at B = 2. float32 (TF32 off): z and
+    versions at D0@512's 11 block shapes at each of ``MAIN_BATCHES`` and
+    efficientnet-b6's widest at B = 2. float32 (TF32 off): z and
     se_mean within 1e-5, as only the order of f32 sums differs. bf16: z
     within ``bf16_agreement``'s limits, which the plain version without the
     bf16 round of y must fail at every case; se_mean within 1e-3 relative
     (+1e-5). Returns the largest f32 error."""
     from efficientdet_tpu_torch.kernels import mbconv_kernel as mk
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
-    cases = [(b, shape) for b in (1, 32) for shape in d0_mbconv_shapes()]
+    cases = [(b, shape) for b in MAIN_BATCHES for shape in d0_mbconv_shapes()]
     cases.append((2, b6_widest_shape()))
     err = 0.0
     for batch, shape in cases:
@@ -514,6 +520,22 @@ def phase_mbconv(torch, dev):
     return err
 
 
+def reset_launches():
+    """Set every kernel wrapper's launch count to 0; returns the wrappers."""
+    from efficientdet_tpu_torch.kernels import fusion, mbconv_kernel
+    from efficientdet_tpu_torch.kernels.nms_kernel import nms_select
+    counters = (nms_select, fusion.fuse_topdown, fusion.fuse_bottomup,
+                mbconv_kernel.fused_expand_dw_flat,
+                mbconv_kernel.fused_expand_dw)
+    for fn in counters:
+        fn.launches = 0
+    return counters
+
+
+def launch_counts(counters):
+    return {fn.__name__: fn.launches for fn in counters}
+
+
 def check_detections(torch, det, batch: int) -> int:
     """Finite, well-formed fixed-shape detections; returns the valid count."""
     scores, classes, boxes, valid = det
@@ -537,34 +559,11 @@ def check_detections(torch, det, batch: int) -> int:
 
 def seeded_state(torch, cfg, dev):
     """Weights from the seed, with BatchNorm statistics set from one forward
-    pass over seeded images, each layer's to the mean and variance of its
-    own input. The random He-normal fan-out init of the depthwise convs
-    shrinks activations by about the channel count per block, so with
-    identity statistics every feature of P3..P7 is ~0 and every score is
-    exactly sigmoid(prior bias); with calibrated statistics the scores
-    spread around the 0.01 threshold and NMS has real work."""
-    from efficientdet_tpu_torch import EfficientDet
-    from efficientdet_tpu_torch.models.layers import BatchNorm
-    from efficientdet_tpu_torch.train import maybe_normalize_images
-
-    model = EfficientDet(cfg, device=dev,
-                         generator=torch.Generator().manual_seed(SEED)).eval()
-
-    def calibrate(bn, args):
-        x = args[0].float()
-        bn.running_mean.copy_(x.mean(dim=(0, 2, 3)))
-        bn.running_var.copy_(x.var(dim=(0, 2, 3), unbiased=False))
-
-    hooks = [m.register_forward_pre_hook(calibrate) for m in model.modules()
-             if isinstance(m, BatchNorm)]
-    images = torch.randint(0, 256, (2, IMAGE_SIZE, IMAGE_SIZE, 3),
-                           dtype=torch.uint8,
-                           generator=torch.Generator().manual_seed(SEED + 4))
-    with torch.no_grad():
-        model.serving_forward(maybe_normalize_images(images.to(dev)))
-    for h in hooks:
-        h.remove()
-    return model.state_dict()
+    pass over two seeded images (``utils/seeded.py``: with identity
+    statistics every score is sigmoid(prior bias); with calibrated ones the
+    scores spread around the 0.01 threshold and NMS has real work)."""
+    from efficientdet_tpu_torch.utils.seeded import seeded_detector
+    return seeded_detector(cfg, SEED, SEED + 4, 2, dev).state_dict()
 
 
 def build_model(torch, cfg, dev, state, dtype, fused):
@@ -585,8 +584,6 @@ def phase_serving(torch, dev, cfg, state):
     three paths of ``PATHS``, alternated. Launch counts are taken over
     exactly this phase."""
     from efficientdet_tpu_torch import make_eval_step
-    from efficientdet_tpu_torch.kernels import fusion, mbconv_kernel
-    from efficientdet_tpu_torch.kernels.nms_kernel import nms_select
 
     models = {fused: build_model(torch, cfg, dev, state, torch.bfloat16, fused)
               for fused in (False, True)}
@@ -596,11 +593,7 @@ def phase_serving(torch, dev, cfg, state):
                                dtype=torch.uint8, generator=gen).to(dev)
               for b in STEPS}
 
-    counters = (nms_select, fusion.fuse_topdown, fusion.fuse_bottomup,
-                mbconv_kernel.fused_expand_dw_flat,
-                mbconv_kernel.fused_expand_dw)
-    for fn in counters:
-        fn.launches = 0
+    counters = reset_launches()
     steps = dict.fromkeys(PATHS, 0)
     kept_total = 0
     eval_steps = {name: make_eval_step(models[fusion_on], cfg,
@@ -629,7 +622,7 @@ def phase_serving(torch, dev, cfg, state):
             log(f"serving D0@512 bf16 {name} B={b}: median {ms:.3f} ms/step "
                 f"(quartiles {q1:.3f}, {q3:.3f}; {len(ts)} steps), "
                 f"{b / ms * 1e3:.1f} img/s")
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = launch_counts(counters)
     total = sum(steps.values())
     check(launches["nms_select"] == total,
           f"nms launches {launches['nms_select']} != steps {total}")
@@ -712,7 +705,8 @@ def phase_f32_parity(torch, dev, cfg, state):
 def phase_nms_model(torch, dev, cfg, state):
     """Kernel A on the main path's own input: the bf16 serving model's
     candidates (``nms_candidates``: threshold, stable top-K, decode, clip)
-    for seeded images at B = 1 and 32, equal to the plain version's.
+    for seeded images at each of ``MAIN_BATCHES``, equal to the plain
+    version's.
     Returns {B: (scores, boxes)} for ``phase_kernel_times``."""
     from efficientdet_tpu_torch.kernels.nms_kernel import (nms_select,
                                                            nms_select_plain)
@@ -721,7 +715,7 @@ def phase_nms_model(torch, dev, cfg, state):
     model = build_model(torch, cfg, dev, state, torch.bfloat16, False)
     gen = torch.Generator().manual_seed(SEED + 11)
     sets = {}
-    for b in STEPS:
+    for b in MAIN_BATCHES:
         images = torch.randint(0, 256, (b, IMAGE_SIZE, IMAGE_SIZE, 3),
                                dtype=torch.uint8, generator=gen).to(dev)
         with torch.inference_mode():
@@ -889,13 +883,12 @@ def check_overfit(torch, dev, cfg, batch):
     throws the loss to 10^3 (and 1e-4 still diverges). Its dynamics are
     the JAX package's: both spike alike in the first 30 steps (grad norm
     0.1 -> 10^2-10^3) and get below 0.6 x only after ~90 steps at this
-    size, hence ``OVERFIT_STEPS``."""
+    size, hence ``OVERFIT_STEPS``. Returns the overfit model's state."""
     from efficientdet_tpu_torch import EfficientDet
     fresh = EfficientDet(cfg, device=dev,
                          generator=torch.Generator().manual_seed(SEED))
-    losses, _ = train_losses(
-        torch, build_train_model(torch, cfg, dev, fresh.state_dict()), cfg,
-        batch, 1e-3, OVERFIT_STEPS)
+    model = build_train_model(torch, cfg, dev, fresh.state_dict())
+    losses, _ = train_losses(torch, model, cfg, batch, 1e-3, OVERFIT_STEPS)
     best = min(losses[-5:])
     check(best < 0.6 * losses[0], f"overfit: best of the last 5 losses "
           f"{best} not below 0.6 x the first {losses[0]}")
@@ -903,6 +896,7 @@ def check_overfit(torch, dev, cfg, batch):
         f"steps: loss {losses[0]:.4f} -> best of the last 5 {best:.4f} "
         f"({best / losses[0]:.3f} of the first; after 30 steps "
         f"{min(losses[25:30]):.4f})")
+    return model.state_dict()
 
 
 def check_bn_modes(torch, dev, cfg, state, batch):
@@ -994,15 +988,9 @@ def phase_train(torch, dev, cfg, state):
     statistics; ``remat``; and the fusion kernels refusing gradients. The
     path runs none of the port's kernels (the JAX training path reaches no
     ``pallas_call``): their launch counts over it must stay 0."""
-    from efficientdet_tpu_torch.kernels import fusion, mbconv_kernel
-    from efficientdet_tpu_torch.kernels.nms_kernel import nms_select
     from efficientdet_tpu_torch.models import anchor_levels_for_model
 
-    counters = (nms_select, fusion.fuse_topdown, fusion.fuse_bottomup,
-                mbconv_kernel.fused_expand_dw_flat,
-                mbconv_kernel.fused_expand_dw)
-    for fn in counters:
-        fn.launches = 0
+    counters = reset_launches()
 
     batch = synthetic_batch(torch, dev, TRAIN_BATCH, SEED + 9)
     out = time_train_steps(torch, dev, cfg, state, batch)
@@ -1011,13 +999,13 @@ def phase_train(torch, dev, cfg, state):
     del batch
 
     small = synthetic_batch(torch, dev, OVERFIT_BATCH, SEED + 10)
-    check_overfit(torch, dev, cfg, small)
+    out["overfit_state"] = check_overfit(torch, dev, cfg, small)
     check_bn_modes(torch, dev, cfg, state, small)
     check_remat(torch, dev, cfg, state, small)
     check_fusion_refuses(torch, dev, cfg, state, small)
     torch.cuda.synchronize()
 
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = launch_counts(counters)
     check(not any(launches.values()),
           f"kernels launched on the training path: {launches}")
     log(f"launches over the training phase: {launches}")
@@ -1102,15 +1090,9 @@ def phase_driver(torch, dev, train):
     port's kernels: their launch counts over it must stay 0."""
     import math
 
-    from efficientdet_tpu_torch.kernels import fusion, mbconv_kernel
-    from efficientdet_tpu_torch.kernels.nms_kernel import nms_select
     from efficientdet_tpu_torch.train import driver
 
-    counters = (nms_select, fusion.fuse_topdown, fusion.fuse_bottomup,
-                mbconv_kernel.fused_expand_dw_flat,
-                mbconv_kernel.fused_expand_dw)
-    for fn in counters:
-        fn.launches = 0
+    counters = reset_launches()
 
     def finite(summary, label):
         values = summary["epoch_loss"] + summary["val_loss"] + [
@@ -1156,7 +1138,7 @@ def phase_driver(torch, dev, train):
             "--device_normalize", "--save_folder", os.path.join(tmp, "c")])
         finite(normalized, "--device_normalize")
     torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = launch_counts(counters)
     check(not any(launches.values()),
           f"kernels launched on the driver's path: {launches}")
     for label, summary in (("float", first), ("device_normalize",
@@ -1177,6 +1159,261 @@ def phase_driver(torch, dev, train):
         f"the bare train step's {train['img_s']:.1f} img/s at "
         f"B={TRAIN_BATCH}; {card_summary()}")
     return out
+
+
+EVAL_ARGV = ["--dataset", "synthetic", "--synthetic_length", "64", "--bf16"]
+EVAL_BATCHES = (8, 32)    # eval.py's default batch, and the serving batch
+EVAL_PARITY_IMAGES = 8
+# Card against CPU, f32: the mAP and each class's AP within this. The
+# detection scores of the two devices differ by float32 rounding, far below
+# the 1e-4 that phase_f32_parity holds the fused path's f32 detection scores
+# to; an AP moves only where two detections of one class swap rank, which
+# needs their scores closer than that difference.
+EVAL_AP_TOL = 1e-4
+# Card against CPU, f32: each image's detection scores, in descending
+# order, within phase_f32_parity's limit for the fused backbone's scores.
+EVAL_SCORE_TOL = 1e-4
+
+
+def save_weights(torch, cfg, dev, state, directory: str) -> str:
+    """The seeded weights as the training driver's ``checkpoint_0.pth``
+    (``utils/checkpoint.py``: the reference blob with the configuration and
+    an optimizer that has taken no step)."""
+    from efficientdet_tpu_torch import EfficientDet, create_train_state
+    from efficientdet_tpu_torch.utils import checkpoint as ckpt
+    model = EfficientDet(cfg, device=dev)
+    model.load_state_dict(state, strict=True)
+    return ckpt.save_checkpoint(directory, create_train_state(model), cfg, 0)
+
+
+def run_eval(torch, argv):
+    """``Evaluator(parse_args(argv)).run()``, what ``python -m
+    efficientdet_tpu_torch.eval`` runs, with every launch count set to 0
+    just before the run and read just after, and every batch's detections
+    kept -> (evaluator, summary, launches, detections per batch)."""
+    from efficientdet_tpu_torch.eval import driver
+    evaluator = driver.Evaluator(driver.parse_args(argv))
+    step, dets = evaluator.eval_fn, []
+
+    def recording(images):
+        dets.append(step(images))
+        return dets[-1]
+
+    evaluator.eval_fn = recording
+    counters = reset_launches()
+    summary = evaluator.run()
+    if evaluator.device.type == "cuda":
+        torch.cuda.synchronize()
+    return evaluator, summary, launch_counts(counters), dets
+
+
+def phase_eval(torch, dev, cfg, state, overfit_state):
+    """The evaluation and demo entry points on the card, from the seeded
+    weights saved as the training driver's blob:
+
+    - ``python -m efficientdet_tpu_torch.eval`` on 64 synthetic images at
+      D0@512 bf16, at B = 8 and 32, with the module backbone and with
+      ``--fused_backbone``, each twice in mirrored order: the model on the
+      card, one NMS launch per batch, 15 MBConv launches per batch with the
+      fused backbone (none without), no fusion launch, every detection
+      finite and inside the image; its img/s (the whole evaluation, data
+      path and metrics included) beside the host data path's alone
+      (``eval_batches`` with no step, one thread);
+    - the same entry point in f32 on 8 images at threshold 0 (every image
+      keeps 100 detections) on the card (TF32 off) and with ``--device
+      cpu`` (the kernels' plain versions, no launch): equal detection
+      counts, the mAP and every class's AP within ``EVAL_AP_TOL``;
+    - the demo's ``Detect.process`` on one 512 x 512 image: boxes, labels
+      and scores equal to the eval step's on the same image (scale 1), one
+      NMS launch. Only what runs without cv2 is called (the card's host has
+      none): at the model's size the resize is the identity. The demo's
+      file and camera branches are covered by the CPU tests;
+    - the model ``check_overfit`` leaves, evaluated (``evaluate_model``
+      with the eval driver's step, f32, threshold 0, B = 8) on the 8 images
+      it fitted, with the module backbone and with ``--fused_backbone``, on
+      the card and on the CPU (the kernels' plain versions): its mAP, well
+      above the random weights' 0, is recorded and not gated; one NMS
+      launch and, fused, 15 MBConv launches on the card, none on the CPU;
+      the two devices' APs must agree within ``EVAL_AP_TOL``, which makes
+      that check non-trivial, and each image's sorted scores within
+      ``EVAL_SCORE_TOL``.
+
+    Returns the launches of each kernel over the card runs."""
+    import math
+
+    import numpy as np
+
+    from efficientdet_tpu_torch import demo
+    from efficientdet_tpu_torch.data import SyntheticDetection, eval_transforms
+    from efficientdet_tpu_torch.data.loader import eval_batches
+    from efficientdet_tpu_torch.eval import driver, evaluate_model
+
+    totals = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        blob = save_weights(torch, cfg, dev, state, tmp)
+        runs = [(b, fused) for fused in (False, True) for b in EVAL_BATCHES]
+        rates = {run: [] for run in runs}
+        for b, fused in runs + runs[::-1]:
+            evaluator, summary, launches, dets = run_eval(
+                torch, EVAL_ARGV + ["--weight", blob, "--batch_size", str(b)]
+                + (["--fused_backbone"] if fused else []))
+            check(next(evaluator.model.parameters()).is_cuda
+                  and evaluator.model.dtype == torch.bfloat16,
+                  "eval model not on the card in bf16")
+            batches = math.ceil(summary["images"] / b)
+            want = {"nms_select": batches, "fuse_topdown": 0,
+                    "fuse_bottomup": 0,
+                    "fused_expand_dw_flat": 15 * batches if fused else 0,
+                    "fused_expand_dw": 0}
+            check(launches == want, f"eval B={b} fused={fused}: launches "
+                  f"{launches}, want {want}")
+            check(len(dets) == batches and summary["detections"] > 0,
+                  f"eval B={b}: {len(dets)} batches, {summary}")
+            for det in dets:
+                check_detections(torch, det, b)
+            for name, n in launches.items():
+                totals[name] = totals.get(name, 0) + n
+            rates[(b, fused)].append(summary["img_s"])
+        for (b, fused), ips in rates.items():
+            log(f"eval driver D0@512 bf16 B={b}"
+                f"{' --fused_backbone' if fused else ''}: "
+                f"{', '.join(f'{v:.1f}' for v in ips)} img/s "
+                f"({summary['images']} synthetic images, whole evaluation)")
+        for b in EVAL_BATCHES:
+            t0 = time.perf_counter()
+            n = sum(len(idx) for idx, _, _ in eval_batches(
+                evaluator.dataset, b))
+            dt = time.perf_counter() - t0
+            log(f"eval host data path alone (eval_batches, B={b}, one "
+                f"thread): {n / dt:.1f} img/s ({dt:.3f} s for {n} images)")
+        t0 = time.perf_counter()
+        for i in range(n):
+            evaluator.dataset.load_annotations(i)
+        log(f"eval ground truth after the loop (load_annotations, which "
+            f"regenerates each synthetic image): "
+            f"{time.perf_counter() - t0:.3f} s for {n} images")
+
+        argv = ["--dataset", "synthetic", "--weight", blob,
+                "--synthetic_length", str(EVAL_PARITY_IMAGES),
+                "--batch_size", str(EVAL_PARITY_IMAGES), "--threshold", "0.0"]
+        _, card, card_launches, card_dets = run_eval(torch, argv)
+        _, cpu, cpu_launches, cpu_dets = run_eval(torch,
+                                                  argv + ["--device", "cpu"])
+        check(card_launches["nms_select"] == 1 and not any(
+            cpu_launches.values()), f"f32 eval launches: card "
+            f"{card_launches}, cpu {cpu_launches}")
+        for name, n in card_launches.items():
+            totals[name] += n
+        check(card["detections"] == cpu["detections"]
+              == 100 * EVAL_PARITY_IMAGES,
+              f"f32 eval detections: card {card['detections']}, cpu "
+              f"{cpu['detections']}")
+        ap_err = max(abs(card["aps"][c][0] - cpu["aps"][c][0])
+                     for c in cpu["aps"])
+        check(card["aps"].keys() == cpu["aps"].keys()
+              and all(card["aps"][c][1] == cpu["aps"][c][1]
+                      for c in cpu["aps"])
+              and ap_err <= EVAL_AP_TOL
+              and abs(card["mAP"] - cpu["mAP"]) <= EVAL_AP_TOL,
+              f"f32 eval, card against CPU: mAP {card['mAP']} vs "
+              f"{cpu['mAP']}, per-class AP off by up to {ap_err}")
+        score_err = (card_dets[0].scores.cpu()
+                     - cpu_dets[0].scores).abs().max().item()
+        same = sum(card["aps"][c][0] == cpu["aps"][c][0] for c in cpu["aps"])
+        log(f"eval f32, card against CPU, {EVAL_PARITY_IMAGES} images at "
+            f"threshold 0: {card['detections']} detections each; mAP "
+            f"{card['mAP']:.6f} vs {cpu['mAP']:.6f}; {same} of "
+            f"{len(cpu['aps'])} class APs equal, the rest within "
+            f"{ap_err:.3g}; slot scores within {score_err:.3g}")
+
+        detect = demo.Detect(demo.parse_args(["--weight", blob,
+                                              "--score_threshold", "0.0"]))
+        check(next(detect.model.parameters()).is_cuda, "demo not on the card")
+        img = np.random.RandomState(SEED + 12).rand(
+            IMAGE_SIZE, IMAGE_SIZE, 3).astype(np.float32)
+        counters = reset_launches()
+        boxes, labels, scores = detect.process(img)
+        torch.cuda.synchronize()
+        demo_launches = launch_counts(counters)
+        sample = eval_transforms(IMAGE_SIZE)(
+            {"img": img, "annot": np.zeros((0, 5), np.float32)})
+        det = detect.eval_step(torch.from_numpy(sample["img"][None]).to(dev))
+        valid = det.valid[0].cpu().numpy()
+        check(sample["scale"] == 1.0 and demo_launches["nms_select"] == 1
+              and len(boxes) > 0,
+              f"demo: scale {sample['scale']}, launches {demo_launches}")
+        check(np.array_equal(boxes, det.boxes[0].cpu().numpy()[valid])
+              and np.array_equal(labels, det.classes[0].cpu().numpy()[valid])
+              and np.array_equal(scores, det.scores[0].cpu().numpy()[valid]),
+              "demo detections differ from the eval step's")
+        for name, n in demo_launches.items():
+            totals[name] += n
+        log(f"demo Detect.process D0@512 f32 on the card: {len(boxes)} "
+            f"detections, equal to the eval step's; launches "
+            f"{demo_launches}")
+
+        fitted = save_weights(torch, cfg, dev, overfit_state,
+                              os.path.join(tmp, "overfit"))
+        images = SyntheticDetection(
+            length=OVERFIT_BATCH, image_size=IMAGE_SIZE, num_classes=80,
+            max_objects=8, seed=SEED + 10,
+            transform=eval_transforms(IMAGE_SIZE))
+        for fused in (False, True):
+            flag = ["--fused_backbone"] if fused else []
+            fitted_maps = {}
+            for device in ("cuda", "cpu"):
+                evaluator = driver.Evaluator(driver.parse_args(
+                    ["--dataset", "synthetic", "--weight", fitted,
+                     "--threshold", "0.0", "--device", device] + flag))
+                step, dets = evaluator.eval_fn, []
+
+                def recording(x):
+                    dets.append(step(x))
+                    return dets[-1]
+
+                counters = reset_launches()
+                mean_ap, aps = evaluate_model(
+                    images, recording, 80, batch_size=OVERFIT_BATCH,
+                    score_threshold=0.0, verbose=False)
+                launches = launch_counts(counters)
+                want = {"nms_select": 1, "fuse_topdown": 0,
+                        "fuse_bottomup": 0,
+                        "fused_expand_dw_flat": 15 if fused else 0,
+                        "fused_expand_dw": 0}
+                if device == "cpu":
+                    want = dict.fromkeys(want, 0)
+                check(len(dets) == 1 and launches == want,
+                      f"overfit model, {device}{' fused' if fused else ''}: "
+                      f"{len(dets)} batches, launches {launches}, want "
+                      f"{want}")
+                if device == "cuda":
+                    for name, n in launches.items():
+                        totals[name] += n
+                fitted_maps[device] = (mean_ap, aps, dets[0])
+            (card_map, card_aps, card_det), (cpu_map, cpu_aps, cpu_det) = (
+                fitted_maps["cuda"], fitted_maps["cpu"])
+            ap_err = max(abs(card_aps[c][0] - cpu_aps[c][0]) for c in cpu_aps)
+            card_scores = card_det.scores.cpu().sort(1, descending=True)[0]
+            cpu_scores = cpu_det.scores.sort(1, descending=True)[0]
+            score_err = (card_scores - cpu_scores).abs().max().item()
+            name = f"overfit model{' --fused_backbone' if fused else ''}"
+            check(torch.equal(card_det.valid.sum(1).cpu(),
+                              cpu_det.valid.sum(1))
+                  and score_err <= EVAL_SCORE_TOL,
+                  f"{name}, f32, card against CPU: valid "
+                  f"{card_det.valid.sum(1).tolist()} vs "
+                  f"{cpu_det.valid.sum(1).tolist()}, scores off by "
+                  f"{score_err}")
+            check(ap_err <= EVAL_AP_TOL
+                  and abs(card_map - cpu_map) <= EVAL_AP_TOL,
+                  f"{name}, f32, card against CPU: mAP {card_map} vs "
+                  f"{cpu_map}, per-class AP off by up to {ap_err}")
+            log(f"{name} on the {OVERFIT_BATCH} images it fitted, f32, "
+                f"threshold 0, B={OVERFIT_BATCH}: mAP@0.5 {card_map:.6f} on "
+                f"the card, {cpu_map:.6f} on the CPU (the kernels' plain "
+                f"versions; the value recorded, not gated); class APs within "
+                f"{ap_err:.3g}, sorted scores within {score_err:.3g}")
+    return totals
 
 
 def module_segment(torch, x, we, s0, b0, w_dw, s1, b1, stride):
@@ -1244,13 +1481,14 @@ def nms_phase_ms(torch, scores, boxes, thr, d, iters: int = 50):
 def phase_kernel_times(torch, dev, nms_sets):
     """Kernel and plain times at the main path's shapes at B = 32, each with
     its bound: NMS at K = 1000, D = 100 on uniform random scores and boxes,
-    and on the model's candidates ``nms_sets`` at B = 1 and 32, each also
-    per phase (``nms_phase_ms``); the fusion nodes of one BiFPN module
-    in bf16, summed, with each node's inputs rotated through more than the
-    L2; the fused MBConv kernel at each D0 block shape in bf16, summed over
-    the 15 blocks, beside its plain version and the module path's ops (both
-    L2-warm). Runs last: once torch.profiler has run, launches in this
-    process are slower, which would skew the serving step's times."""
+    and on the model's candidates ``nms_sets`` at each of ``MAIN_BATCHES``,
+    each also per phase (``nms_phase_ms``); the fusion nodes of one BiFPN
+    module in bf16, summed, with each node's inputs rotated through more
+    than the L2; the fused MBConv kernel at each D0 block shape in bf16,
+    summed over the 15 blocks, beside its plain version and the module
+    path's ops (both L2-warm). Runs last: once torch.profiler has run,
+    launches in this process are slower, which would skew the serving
+    step's times."""
     from efficientdet_tpu_torch.kernels import fusion, mbconv_kernel
     from efficientdet_tpu_torch.kernels.nms_kernel import (nms_select,
                                                            nms_select_plain)
@@ -1495,6 +1733,10 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_driver(torch, dev, train)
     log(f"driver phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    eval_launches = phase_eval(torch, dev, cfg, state,
+                               train.pop("overfit_state"))
+    log(f"eval phase {time.perf_counter() - t0:.1f} s")
     times = phase_kernel_times(torch, dev, nms_sets)
     if args.profile:
         phase_profile(torch, dev, cfg, state, args.out)
@@ -1504,6 +1746,12 @@ def main() -> int:
     # MBConv launch for each of the 15 expanded blocks.
     per_step = {"nms_select": 1, "fuse_topdown": 8, "fuse_bottomup": 6,
                 "mbconv_fused": 15}
+    # Launches over the evaluation and demo entry points' card runs.
+    eval_runs = {"nms_select": eval_launches["nms_select"],
+                 "fuse_topdown": eval_launches["fuse_topdown"],
+                 "fuse_bottomup": eval_launches["fuse_bottomup"],
+                 "mbconv_fused": eval_launches["fused_expand_dw_flat"]
+                 + eval_launches["fused_expand_dw"]}
     sources = {
         "nms_select": ("cuda", "efficientdet_tpu_torch/csrc/nms_select.cu",
                        "efficientdet_tpu/kernels/nms_kernel.py:100",
@@ -1528,7 +1776,8 @@ def main() -> int:
         t = times[name]
         entry = {"name": name, "route": route, "source": source,
                  "replaces": replaces, "launches": n,
-                 "launches_per_step": per_step[name], "max_abs_err": err,
+                 "launches_per_step": per_step[name],
+                 "eval_launches": eval_runs[name], "max_abs_err": err,
                  "ms": t["ms"], "plain_ms": t["plain_ms"],
                  "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                  # No single PyTorch call computes any of these functions.

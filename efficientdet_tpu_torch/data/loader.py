@@ -2,9 +2,10 @@
 
 ``DataLoader`` and ``prefetch_iter`` are the port's own copies of the
 in-Python path of ``efficientdet_tpu/data/loader.py``, with its RAM cache
-of decoded images: the same batches, in the same order, for the same seed.
-The JAX package's C++ batch pipeline (``native=``) is not ported yet: any
-value other than ``"off"`` raises. ``to_device`` is the counterpart of
+of decoded images: the same batches, in the same order, for the same seed;
+``eval_batches`` is the copy of its sequential evaluation batches. The JAX
+package's C++ batch pipeline (``native=``) is not ported yet: any value
+other than ``"off"`` raises. ``to_device`` is the counterpart of
 ``shard_batch``.
 """
 
@@ -18,6 +19,14 @@ import numpy as np
 import torch
 
 from .transforms import collate
+
+
+def refuse_native(native: str) -> None:
+    """Raise for any C++ batch pipeline setting but 'off'."""
+    if native != "off":
+        raise NotImplementedError(
+            f"native={native!r}: the C++ batch pipeline is not ported yet "
+            "(ROADMAP queue A, item A13); use native='off'")
 
 
 class DataLoader:
@@ -44,10 +53,7 @@ class DataLoader:
                  native: str = "off", image_size: int = 0,
                  flip_prob: float = 0.0, cache: str = "off",
                  uint8_images: bool = False):
-        if native != "off":
-            raise NotImplementedError(
-                f"native={native!r}: the C++ batch pipeline is not ported "
-                "yet (ROADMAP queue A, item A13); use native='off'")
+        refuse_native(native)
         if cache not in ("off", "ram"):
             raise ValueError(f"cache must be 'off' or 'ram', got {cache!r}")
         if cache == "ram" and not (hasattr(dataset, "load_image")
@@ -123,6 +129,28 @@ class DataLoader:
                               self.max_boxes, uint8_images=self.uint8_images)
 
         return prefetch_iter(batches(), depth=self.prefetch)
+
+
+def eval_batches(dataset, batch_size: int,
+                 native: str = "off") -> Iterator[tuple]:
+    """Sequential eval batches: yields (indices, images (B, S, S, 3) f32,
+    scales (B,) f32) from ``dataset[i]``'s transform. The last batch is
+    zero-padded to the batch size, with scales 1, so the step sees one
+    shape; callers drop the padded rows by index. ``native`` other than
+    'off' raises before the first batch is made."""
+    refuse_native(native)
+    n = len(dataset)
+    for start in range(0, n, batch_size):
+        idx = list(range(start, min(start + batch_size, n)))
+        samples = [dataset[i] for i in idx]
+        images = np.stack([s["img"] for s in samples]).astype(np.float32)
+        scales = np.array([s.get("scale", 1.0) for s in samples], np.float32)
+        if len(idx) < batch_size:
+            pad = batch_size - len(idx)
+            images = np.concatenate(
+                [images, np.zeros((pad,) + images.shape[1:], np.float32)])
+            scales = np.concatenate([scales, np.ones((pad,), np.float32)])
+        yield idx, images, scales
 
 
 def prefetch_iter(it: Iterator, depth: int = 2) -> Iterator:

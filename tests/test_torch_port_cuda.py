@@ -315,3 +315,55 @@ def test_small_train_step(cuda):
         if g.any():
             assert not torch.equal(p, b)
     assert [fn.launches for fn in counters] == launches
+
+
+def _small_blob(device, directory):
+    """A training-driver blob of the small detector (its configuration
+    included), saved from the card."""
+    from efficientdet_tpu_torch import create_train_state
+    from efficientdet_tpu_torch.utils import checkpoint as ckpt
+    cfg = DetectorConfig(**SMALL).resolve()
+    model = EfficientDet(cfg, device=device,
+                         generator=torch.Generator().manual_seed(0))
+    return ckpt.save_checkpoint(str(directory), create_train_state(model),
+                                cfg, epoch=0)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_eval_driver_launches_kernels(cuda, tmp_path, fused):
+    """``python -m efficientdet_tpu_torch.eval`` with its default device,
+    bf16, 5 synthetic images in batches of 2 (the last padded): the model
+    on the card, one NMS launch per batch and, with ``--fused_backbone``,
+    15 MBConv launches per batch."""
+    from efficientdet_tpu_torch.eval import driver
+    args = driver.parse_args(
+        ["--dataset", "synthetic", "--weight", _small_blob(cuda, tmp_path),
+         "--synthetic_length", "5", "--batch_size", "2", "--bf16"]
+        + (["--fused_backbone"] if fused else []))
+    evaluator = driver.Evaluator(args)
+    assert next(evaluator.model.parameters()).is_cuda
+    counts = (nms_select.launches,
+              mbconv_kernel.fused_expand_dw_flat.launches)
+    summary = evaluator.run()
+    torch.cuda.synchronize()
+    assert (nms_select.launches - counts[0],
+            mbconv_kernel.fused_expand_dw_flat.launches - counts[1]) == (
+                3, 45 if fused else 0)
+    assert summary["images"] == 5 and 0 <= summary["mAP"] <= 1
+
+
+def test_demo_detect_serves_on_the_card(cuda, tmp_path):
+    """The demo's ``Detect`` with its default device: the model on the
+    card, one NMS launch per image, boxes in the original image's pixels."""
+    import numpy as np
+    from efficientdet_tpu_torch import demo
+    detect = demo.Detect(demo.parse_args(
+        ["--weight", _small_blob(cuda, tmp_path), "--score_threshold",
+         "0.0"]))
+    assert next(detect.model.parameters()).is_cuda
+    before = nms_select.launches
+    boxes, labels, scores = detect.process(
+        np.random.RandomState(0).rand(128, 128, 3).astype(np.float32))
+    assert nms_select.launches - before == 1
+    assert boxes.shape == (100, 4) and np.isfinite(boxes).all()
+    assert boxes.min() >= 0 and boxes.max() <= 128

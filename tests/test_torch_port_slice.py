@@ -276,6 +276,8 @@ import sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
 sys.modules["efficientdet_tpu"] = None
+sys.modules["cv2"] = None          # absent on the card's host, as is
+sys.modules["matplotlib"] = None   # matplotlib
 import torch
 from efficientdet_tpu_torch import DetectorConfig, EfficientDet, make_eval_step
 cfg = DetectorConfig(num_classes=4, network="efficientdet-d0", input_size=128,
@@ -310,18 +312,33 @@ with tempfile.TemporaryDirectory() as out:
                 "--eval_every", "1", "--save_folder", out]
     runpy.run_module("efficientdet_tpu_torch.train", run_name="__main__",
                      alter_sys=True)
-    assert os.path.isfile(os.path.join(out, "synthetic", "efficientdet-d0",
-                                       "checkpoint_0.pth"))
+    blob = os.path.join(out, "synthetic", "efficientdet-d0", "checkpoint_0.pth")
+    assert os.path.isfile(blob)
+    sys.argv = ["efficientdet_tpu_torch.eval", "--dataset", "synthetic",
+                "--device", "cpu", "--weight", blob, "--synthetic_length", "3",
+                "--batch_size", "2", "--threshold", "0.0"]
+    runpy.run_module("efficientdet_tpu_torch.eval", run_name="__main__",
+                     alter_sys=True)
+    import numpy as np
+    from efficientdet_tpu_torch.demo import Detect, parse_args
+    detect = Detect(parse_args(["--weight", blob, "--device", "cpu",
+                                "--score_threshold", "0.0"]))
+    boxes, labels, scores = detect.process(
+        np.random.RandomState(0).rand(128, 128, 3).astype(np.float32))
+    assert boxes.shape == (100, 4) and len(labels) == len(scores) == 100
 print("NO_JAX_OK")
 """
 
 
 def test_port_runs_with_jax_blocked():
     """The port imports neither jax, flax nor the JAX package: with all
-    three blocked, it builds and runs the CPU slice, with the fusion kernels
-    and with the fused MBConv backbone, takes a train step from its own
-    data path's batches, and ``python -m efficientdet_tpu_torch.train``
-    trains an epoch on the CPU and writes its checkpoint."""
+    three blocked, and cv2 and matplotlib too, it builds and runs the CPU
+    slice, with the fusion kernels and with the fused MBConv backbone,
+    takes a train step from its own data path's batches, ``python -m
+    efficientdet_tpu_torch.train`` trains an epoch on the CPU and writes
+    its checkpoint, ``python -m efficientdet_tpu_torch.eval`` evaluates
+    that checkpoint, and the demo's ``Detect.process`` serves an image at
+    the model's size from it."""
     # One intra-op thread: beside the other test workers, a process of one
     # thread per core spins in its thread barriers and slows many times.
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT,
@@ -329,3 +346,4 @@ def test_port_runs_with_jax_blocked():
                           env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NO_JAX_OK" in proc.stdout
+    assert "mAP@0.5: " in proc.stdout and "avg mAP: " in proc.stdout
