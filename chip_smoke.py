@@ -33,6 +33,7 @@ entry per kernel; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import os
@@ -1087,11 +1088,17 @@ def phase_driver(torch, dev, train):
     ``--device_normalize`` pass. Prints the driver's epoch img/s beside the
     bare step's from the training phase, and the host data path's time for
     one batch on its own. The path reaches none of the
-    port's kernels: their launch counts over it must stay 0."""
+    port's kernels: their launch counts over it must stay 0. cuDNN picks
+    deterministic algorithms throughout (its weight gradients are not
+    bit-reproducible otherwise), so that ``phase_parallel`` can hold its
+    world-size-1 process group's run to the first run bit for bit: the
+    first run's epoch losses and last checkpoint come back in
+    ``out['reference']``."""
     import math
 
     from efficientdet_tpu_torch.train import driver
 
+    torch.backends.cudnn.deterministic = True
     counters = reset_launches()
 
     def finite(summary, label):
@@ -1111,6 +1118,10 @@ def phase_driver(torch, dev, train):
             epoch, train_state_snapshot(t.state)))
         finite(first, "run")
         check(len(first["checkpoints"]) == 2, f"checkpoints {first}")
+        out["reference"] = {
+            "epoch_loss": first["epoch_loss"],
+            "blob": torch.load(first["checkpoints"][-1], map_location="cpu",
+                               weights_only=False)}
         del trainer
 
         resumed = driver.Trainer(driver.parse_args(
@@ -1138,6 +1149,7 @@ def phase_driver(torch, dev, train):
             "--device_normalize", "--save_folder", os.path.join(tmp, "c")])
         finite(normalized, "--device_normalize")
     torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = False
     launches = launch_counts(counters)
     check(not any(launches.values()),
           f"kernels launched on the driver's path: {launches}")
@@ -1158,6 +1170,417 @@ def phase_driver(torch, dev, train):
         f"{out['device_normalize'][1]:.1f} (--device_normalize), against "
         f"the bare train step's {train['img_s']:.1f} img/s at "
         f"B={TRAIN_BATCH}; {card_summary()}")
+    return out
+
+
+# Data parallelism (phase_parallel): the gloo ranks' global batch and steps,
+# and the timed steps per variant and round.
+GLOO_WORLD, GLOO_BATCH, GLOO_STEPS = 2, 16, 3
+PARALLEL_ROUNDS, PARALLEL_ROUND_STEPS = 4, 5
+PARALLEL_EVAL_BATCH, PARALLEL_EVAL_CALLS = 8, 3
+LAUNCHER_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                 "MASTER_ADDR", "MASTER_PORT")
+# The gloo ranks, f32 without TF32, 3 AdamW steps at lr 1e-4, against one
+# process at B = 16 in the NCCL group of one (its BatchNorms take the
+# statistics by the same all-reduced sums) and without a group (cuDNN's
+# BatchNorm): the first step's gradient within 1e-3 of the largest gradient
+# of all and its norm within 1e-3 relative, the losses within 1e-4
+# relative at every step, the weights within AdamW's own bound, lr per step
+# (Adam's normalised step moves a weight whose gradient is rounding noise
+# by up to lr in either direction). The gradient is held to the largest of
+# all, not each tensor's own largest: a few tensors' gradients (the head's
+# conv weights, SE weights, the stem's BN scale) are small sums of large
+# terms, and move by up to 7e-3 of their own largest between any two BN
+# arithmetics or batch splits, where one process's two runs agree within
+# 6e-6 (measured on an H100; 5e-5 of the largest of all).
+GLOO_GRAD_RTOL = 1e-3
+GLOO_LOSS_RTOL = 1e-4
+GLOO_PARAM_ATOL = 2 * 1e-4 * GLOO_STEPS
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def launcher_vars(rank: int, world: int) -> dict:
+    """A launcher's environment for one local rank (torchrun's variables)."""
+    return {"RANK": str(rank), "WORLD_SIZE": str(world),
+            "LOCAL_RANK": str(rank), "LOCAL_WORLD_SIZE": str(world),
+            "MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port())}
+
+
+@contextlib.contextmanager
+def nccl_group_of_one():
+    """This process as the one rank of an NCCL group on cuda:0, through a
+    launcher's environment of world size 1 (restored on exit)."""
+    from efficientdet_tpu_torch.parallel import create_mesh
+    saved = {k: os.environ.get(k) for k in LAUNCHER_VARS}
+    os.environ.update(launcher_vars(0, 1))
+    mesh = create_mesh(device="cuda")
+    try:
+        check(mesh.group is not None and mesh.world_size == 1,
+              "no NCCL group of one")
+        yield mesh
+    finally:
+        mesh.close()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def check_blobs_equal(torch, got, want, where="blob") -> int:
+    """Every tensor of two checkpoint blobs ``torch.equal`` and every other
+    value equal, except the pickled flags (``parser``: the save folder and
+    the group flags differ); returns the number of tensors."""
+    if torch.is_tensor(want):
+        check(torch.is_tensor(got) and torch.equal(got, want),
+              f"{where} differs")
+        return 1
+    if isinstance(want, dict):
+        check(isinstance(got, dict) and got.keys() == want.keys(),
+              f"{where} keys differ")
+        return sum(check_blobs_equal(torch, got[k], v, f"{where}[{k!r}]")
+                   for k, v in want.items() if k != "parser")
+    if isinstance(want, (list, tuple)):
+        check(len(got) == len(want), f"{where} lengths differ")
+        return sum(check_blobs_equal(torch, g, w, f"{where}[{i}]")
+                   for i, (g, w) in enumerate(zip(got, want)))
+    check(got == want, f"{where}: {got!r} != {want!r}")
+    return 0
+
+
+def driver_in_group_of_one(torch, tmp, reference):
+    """(i) ``python -m efficientdet_tpu_torch.train --multihost`` with
+    ``phase_driver``'s flags in a subprocess whose environment makes it the
+    one rank of an NCCL group (every collective runs), cuDNN deterministic
+    and TF32 off as in this process: its epoch losses (the log's exact
+    floats) and its last checkpoint bit-equal to ``phase_driver``'s first
+    run."""
+    out = os.path.join(tmp, "group_of_one")
+    code = ("import runpy, torch; torch.backends.cudnn.deterministic = True; "
+            "torch.backends.cuda.matmul.allow_tf32 = False; "
+            "torch.backends.cudnn.allow_tf32 = False; "
+            "runpy.run_module('efficientdet_tpu_torch.train', "
+            "run_name='__main__', alter_sys=True)")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", code, "--multihost"] + DRIVER_ARGV
+        + ["--save_folder", out, "--log_dir", os.path.join(out, "log")],
+        cwd=HERE, env=dict(os.environ, **launcher_vars(0, 1)),
+        capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"driver in an NCCL group of one failed:\n{proc.stderr[-3000:]}")
+    check("devices: 1 data x 1 spatial | processes: 1" in proc.stdout,
+          f"driver setup line missing:\n{proc.stdout[-2000:]}")
+    with open(os.path.join(out, "log", "metrics.jsonl")) as f:
+        losses = [r["epoch_loss"] for r in map(json.loads, f)
+                  if "epoch_loss" in r]
+    check(losses == reference["epoch_loss"],
+          f"group of one: epoch losses {losses} != "
+          f"{reference['epoch_loss']}")
+    blob = torch.load(os.path.join(out, "synthetic", "efficientdet-d0",
+                                   "checkpoint_1.pth"), map_location="cpu",
+                      weights_only=False)
+    n = check_blobs_equal(torch, blob, reference["blob"])
+    log(f"(i) driver --multihost in an NCCL group of one, D0@512 bf16 B=32, "
+        f"2 epochs ({seconds:.1f} s with start-up): epoch losses "
+        f"{losses} and the last checkpoint's {n} tensors bit-equal to "
+        "phase_driver's one-process run")
+
+
+def gloo_rank(rank: int, world: int, tmp: str) -> None:
+    """(ii) one spawned rank: gloo on cuda:0, shared with the other rank;
+    the job's model and batch -> ``tmp/rank{r}.pt``."""
+    import torch
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from efficientdet_tpu_torch.parallel import create_mesh
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    mesh = create_mesh(world, backend="gloo", device="cuda:0",
+                       init_method="file://" + os.path.join(tmp, "rdzv"))
+    try:
+        out = gloo_steps(torch, mesh, torch.load(
+            os.path.join(tmp, "job.pt"), weights_only=False))
+    finally:
+        mesh.close()
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def gloo_steps(torch, mesh, job):
+    """``GLOO_STEPS`` train steps of D0@512 f32, ``train`` BN, from the
+    job's weights on the rank's rows of the job's batch (rows r, r + world,
+    ...: the loader's split), timed each with a synchronize; without a
+    group, one process on the whole batch. Launch counts from 0; the
+    gradient the first step applies (after the all-reduce) is kept."""
+    import dataclasses
+
+    from efficientdet_tpu_torch import (EfficientDet, create_train_state,
+                                        make_train_step)
+    from efficientdet_tpu_torch.parallel import (put_replicated,
+                                                 shard_train_step)
+    cfg = dataclasses.replace(job["cfg"], bn_mode="train")
+    model = EfficientDet(cfg, device=mesh.device)
+    model.load_state_dict(job["state"], strict=True)
+    model = model.train().to(memory_format=torch.channels_last)
+    state = put_replicated(create_train_state(model), mesh)
+    step = shard_train_step(make_train_step(model, cfg), mesh)
+    batch = {k: v[mesh.rank::mesh.world_size].to(mesh.device)
+             for k, v in job["batch"].items()}
+    first_grads = []
+    apply = state.apply_gradients
+
+    def capture(grads):
+        if not first_grads:
+            first_grads.extend(g.detach().cpu().clone() for g in grads)
+        apply(grads)
+
+    state.apply_gradients = capture
+    counters = reset_launches()
+    metrics, ms = [], []
+    for _ in range(GLOO_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(state, batch, SEED)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {"metrics": metrics, "ms": ms, "grads": first_grads,
+            "names": [n for n, _ in model.named_parameters()],
+            "launches": launch_counts(counters),
+            "state": {k: v.cpu() for k, v in model.state_dict().items()}}
+
+
+def compare_steps(torch, got, want):
+    """{'grad': the first gradient's largest gap relative to each tensor's
+    largest (to the largest of all where a tensor's is below 1e-4 of it),
+    'grad_global': relative to the largest of all, 'worst': the three
+    tensors with the largest gaps, 'loss': the losses' largest relative
+    gap, 'grad_norm': the first step's gradient norm's, 'param': the
+    weights' largest gap}."""
+    largest = max(g.abs().max().item() for g in want["grads"])
+    gaps = []
+    for name, g, w in zip(want["names"], got["grads"], want["grads"]):
+        top = w.abs().max().item()
+        scale = top if top > 1e-4 * largest else largest
+        gaps.append(((g - w).abs().max().item(), scale, name))
+    gaps.sort(key=lambda t: t[0] / t[1])
+    rel = lambda key, steps=None: max(
+        abs(g[key] - w[key]) / abs(w[key])
+        for g, w in zip(got["metrics"][:steps], want["metrics"][:steps]))
+    return {"grad": gaps[-1][0] / gaps[-1][1],
+            "grad_global": max(d for d, _, _ in gaps) / largest,
+            "worst": [(n, d / s) for d, s, n in gaps[-3:]],
+            "loss": max(rel(k) for k in ("loss", "cls_loss", "reg_loss")),
+            "grad_norm": rel("grad_norm", 1),
+            "param": max((got["state"][k] - v).abs().max().item()
+                         for k, v in want["state"].items())}
+
+
+def gloo_ranks_on_one_card(torch, dev, cfg, state, tmp, mesh):
+    """(ii) two spawned ranks sharing cuda:0 over gloo (through the host),
+    D0@512 f32 without TF32, ``train`` BN, global batch 16, 3 steps: the
+    ranks bit-equal to each other, no kernel launched, and within
+    ``GLOO_GRAD_RTOL``, ``GLOO_LOSS_RTOL`` and ``GLOO_PARAM_ATOL`` of one
+    process at B = 16, in ``mesh`` (the NCCL group of one) and without a
+    group. Returns the ranks' and the references' ms per step."""
+    import torch.multiprocessing as mp
+
+    from efficientdet_tpu_torch.parallel import Mesh
+    batch = synthetic_batch(torch, dev, GLOO_BATCH, SEED + 11)
+    job = {"cfg": cfg, "state": {k: v.cpu() for k, v in state.items()},
+           "batch": {k: v.cpu() for k, v in batch.items()}}
+    torch.save(job, os.path.join(tmp, "job.pt"))
+    t0 = time.perf_counter()
+    mp.start_processes(gloo_rank, args=(GLOO_WORLD, tmp), nprocs=GLOO_WORLD,
+                       start_method="spawn")
+    seconds = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+             for r in range(GLOO_WORLD)]
+    r0 = ranks[0]
+    for other in ranks[1:]:
+        check(other["metrics"] == r0["metrics"], "gloo ranks' metrics differ")
+        check(all(torch.equal(other["state"][k], v)
+                  for k, v in r0["state"].items()), "gloo ranks differ")
+    for rank in ranks:
+        check(not any(rank["launches"].values()),
+              f"kernels launched on the gloo ranks: {rank['launches']}")
+    refs = {"group_of_one": gloo_steps(torch, mesh, job),
+            "one_process": gloo_steps(torch, Mesh(0, 1, 0, dev), job)}
+    lines = []
+    for name, ref in refs.items():
+        gap = compare_steps(torch, r0, ref)
+        worst = ", ".join(f"{n} {e:.3g}" for n, e in gap["worst"])
+        check(gap["grad_global"] <= GLOO_GRAD_RTOL
+              and gap["grad_norm"] <= GLOO_GRAD_RTOL
+              and gap["loss"] <= GLOO_LOSS_RTOL
+              and gap["param"] <= GLOO_PARAM_ATOL,
+              f"gloo ranks against {name}: {gap}")
+        lines.append(f"against {name} B={GLOO_BATCH}: first gradient within "
+                     f"{gap['grad_global']:.3g} of the largest of all (of "
+                     f"each tensor's own: {worst}), grad norm "
+                     f"{gap['grad_norm']:.3g}, losses {gap['loss']:.3g}, "
+                     f"weights {gap['param']:.3g}, ms/step "
+                     f"{', '.join(f'{t:.1f}' for t in ref['ms'])}")
+    log(f"(ii) 2 gloo ranks on cuda:0, D0@512 f32 train BN, global B="
+        f"{GLOO_BATCH}, {GLOO_STEPS} steps ({seconds:.1f} s with spawn): "
+        f"ranks bit-equal, no kernel launched, ms/step "
+        f"{', '.join(f'{t:.1f}' for t in r0['ms'])}; " + "; ".join(lines))
+    return {"ms": r0["ms"], **{f"{k}_ms": v["ms"] for k, v in refs.items()}}
+
+
+def eval_in_group_of_one(torch, dev, cfg, state, mesh):
+    """(iii) ``shard_eval_step`` in the NCCL group of one, bf16 at B = 8,
+    module and fused backbone: bit-equal to ``make_eval_step``, one NMS
+    launch per call and 15 MBConv launches per fused call. Returns the
+    launches of the sharded calls."""
+    from efficientdet_tpu_torch import make_eval_step
+    from efficientdet_tpu_torch.parallel import shard_eval_step
+    images = synthetic_batch(torch, dev, PARALLEL_EVAL_BATCH,
+                             SEED + 12)["images"]
+    total = {}
+    for name, fused in (("plain", False), ("fusedmb", True)):
+        model = build_model(torch, cfg, dev, state, torch.bfloat16, False)
+        step = make_eval_step(model, cfg, fused_backbone=fused)
+        want = step(images)
+        sharded = shard_eval_step(step, mesh)
+        counters = reset_launches()
+        got = [sharded(images) for _ in range(PARALLEL_EVAL_CALLS)]
+        torch.cuda.synchronize()
+        launches = launch_counts(counters)
+        for det in got:
+            check(all(torch.equal(g, w) for g, w in zip(det, want)),
+                  f"shard_eval_step {name} differs from make_eval_step")
+        valid = check_detections(torch, want, PARALLEL_EVAL_BATCH)
+        mbconv = (launches["fused_expand_dw_flat"]
+                  + launches["fused_expand_dw"])
+        check(launches["nms_select"] == PARALLEL_EVAL_CALLS
+              and mbconv == 15 * PARALLEL_EVAL_CALLS * fused,
+              f"shard_eval_step {name} launches {launches}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        log(f"(iii) shard_eval_step {name} in the NCCL group of one, B="
+            f"{PARALLEL_EVAL_BATCH}: {PARALLEL_EVAL_CALLS} calls bit-equal "
+            f"to make_eval_step ({valid} valid), launches {launches}")
+    return total
+
+
+def time_steps_in_group_of_one(torch, dev, cfg, state, mesh):
+    """(iv) the D0@512 bf16 train step at B = 64 in the NCCL group of one
+    against the one-process step, in frozen and train BN: CUDA events per
+    step, the variants in turns (one process, group, group, one process
+    ...), ``PARALLEL_ROUNDS`` rounds of ``PARALLEL_ROUND_STEPS`` steps each
+    after 2 warm-up steps, and each variant's peak memory (both variants'
+    states resident)."""
+    import dataclasses
+
+    from efficientdet_tpu_torch import create_train_state, make_train_step
+    from efficientdet_tpu_torch.parallel import shard_train_step
+    batch = synthetic_batch(torch, dev, TRAIN_BATCH, SEED + 9)
+    out = {}
+    for bn_mode in ("frozen", "train"):
+        tcfg = dataclasses.replace(cfg, bn_mode=bn_mode)
+        variants = {}
+        for name in ("one_process", "group_of_one"):
+            model = build_train_model(torch, tcfg, dev, state)
+            step = make_train_step(model, tcfg)
+            if name == "group_of_one":
+                step = shard_train_step(step, mesh)
+            variants[name] = (create_train_state(model), step)
+        for train_state, step in variants.values():
+            for _ in range(2):
+                step(train_state, batch, SEED)
+        times = {name: [] for name in variants}
+        peak = {}
+        order = ["one_process", "group_of_one"]
+        for r in range(PARALLEL_ROUNDS):
+            for name in (order if r % 2 == 0 else order[::-1]):
+                train_state, step = variants[name]
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                events = [(torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+                          for _ in range(PARALLEL_ROUND_STEPS)]
+                for start, end in events:
+                    start.record()
+                    step(train_state, batch, SEED)
+                    end.record()
+                torch.cuda.synchronize()
+                times[name] += [s.elapsed_time(e) for s, e in events]
+                gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                peak[name] = max(peak.get(name, 0.0), gib)
+        med = {k: statistics.median(v) for k, v in times.items()}
+        quart = {k: statistics.quantiles(v, n=4) for k, v in times.items()}
+        out[bn_mode] = {"ms": med, "quartiles": quart, "peak_gib": peak}
+        log(f"(iv) train D0@512 bf16 {bn_mode} BN B={TRAIN_BATCH}: one "
+            f"process median {med['one_process']:.3f} ms/step (quartiles "
+            f"{quart['one_process'][0]:.3f}, {quart['one_process'][2]:.3f}; "
+            f"peak {peak['one_process']:.2f} GiB), NCCL group of one "
+            f"{med['group_of_one']:.3f} (quartiles "
+            f"{quart['group_of_one'][0]:.3f}, {quart['group_of_one'][2]:.3f};"
+            f" peak {peak['group_of_one']:.2f} GiB): "
+            f"{med['group_of_one'] - med['one_process']:+.3f} ms/step over "
+            f"{2 * PARALLEL_ROUNDS * PARALLEL_ROUND_STEPS} steps in turns; "
+            f"{card_summary()}")
+        del variants
+    return out
+
+
+def bn_collectives_ms(torch, dev, cfg, state, mesh, steps: int = 20):
+    """Device ms per train step of the ``train``-mode BatchNorms'
+    collectives alone, in ``mesh``: one (2C,) float32 all-reduce forward
+    and one backward per backbone BatchNorm, at its width, between CUDA
+    events over ``steps`` steps' worth."""
+    import torch.distributed as dist
+
+    from efficientdet_tpu_torch.models.layers import BatchNorm
+    model = build_train_model(torch, cfg, dev, state)
+    bufs = [torch.zeros(2 * m.num_features, device=dev)
+            for m in model.modules() if isinstance(m, BatchNorm)] * 2
+    for b in bufs:
+        dist.all_reduce(b, group=mesh.group)
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    start.record()
+    for _ in range(steps):
+        for b in bufs:
+            dist.all_reduce(b, group=mesh.group)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / steps
+    log(f"(iv) the train-mode BatchNorms' {len(bufs)} all-reduces alone in "
+        f"the NCCL group of one: {ms:.3f} ms per step "
+        f"({ms / len(bufs) * 1e3:.1f} us each); {card_summary()}")
+    return ms
+
+
+def phase_parallel(torch, dev, cfg, state, driver_out):
+    """Data parallelism on one card (``efficientdet_tpu_torch.parallel``):
+    (i) the training driver with ``--multihost`` in an NCCL group of one,
+    bit-equal to ``phase_driver``'s run; (ii) two gloo ranks sharing the
+    card, bit-equal to each other and close to one process; (iii)
+    ``shard_eval_step`` in the group of one, bit-equal to
+    ``make_eval_step`` with its kernel launches counted; (iv) the train
+    step's time in the group of one beside the one-process step's. No
+    speed-up is claimed: one card. Returns (iii)'s launches and the
+    timings."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, nccl_group_of_one() as mesh:
+        driver_in_group_of_one(torch, tmp, driver_out["reference"])
+        out["gloo"] = gloo_ranks_on_one_card(torch, dev, cfg, state, tmp,
+                                             mesh)
+        out["launches"] = eval_in_group_of_one(torch, dev, cfg, state, mesh)
+        out["times"] = time_steps_in_group_of_one(torch, dev, cfg, state,
+                                                  mesh)
+        out["bn_collectives_ms"] = bn_collectives_ms(torch, dev, cfg, state,
+                                                     mesh)
     return out
 
 
@@ -1731,8 +2154,12 @@ def main() -> int:
     train = phase_train(torch, dev, cfg, state)
     log(f"training phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    phase_driver(torch, dev, train)
+    driver_out = phase_driver(torch, dev, train)
     log(f"driver phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    parallel = phase_parallel(torch, dev, cfg, state, driver_out)
+    del driver_out
+    log(f"parallel phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     eval_launches = phase_eval(torch, dev, cfg, state,
                                train.pop("overfit_state"))
@@ -1747,6 +2174,13 @@ def main() -> int:
     per_step = {"nms_select": 1, "fuse_topdown": 8, "fuse_bottomup": 6,
                 "mbconv_fused": 15}
     # Launches over the evaluation and demo entry points' card runs.
+    # Launches over phase_parallel's shard_eval_step calls.
+    parallel_runs = {"nms_select": parallel["launches"]["nms_select"],
+                     "fuse_topdown": parallel["launches"]["fuse_topdown"],
+                     "fuse_bottomup": parallel["launches"]["fuse_bottomup"],
+                     "mbconv_fused":
+                     parallel["launches"]["fused_expand_dw_flat"]
+                     + parallel["launches"]["fused_expand_dw"]}
     eval_runs = {"nms_select": eval_launches["nms_select"],
                  "fuse_topdown": eval_launches["fuse_topdown"],
                  "fuse_bottomup": eval_launches["fuse_bottomup"],
@@ -1777,7 +2211,8 @@ def main() -> int:
         entry = {"name": name, "route": route, "source": source,
                  "replaces": replaces, "launches": n,
                  "launches_per_step": per_step[name],
-                 "eval_launches": eval_runs[name], "max_abs_err": err,
+                 "eval_launches": eval_runs[name],
+                 "parallel_launches": parallel_runs[name], "max_abs_err": err,
                  "ms": t["ms"], "plain_ms": t["plain_ms"],
                  "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                  # No single PyTorch call computes any of these functions.
@@ -1791,6 +2226,13 @@ def main() -> int:
         f"ms/step, {train['img_s']:.1f} img/s, peak memory "
         f"{train['peak_gib']:.2f} GiB; focal backward f32 within "
         f"{train['focal_f32_rel_err']:.3g} of the largest gradient")
+    for bn_mode, t in parallel["times"].items():
+        log(f"training D0@512 bf16 {bn_mode} BN B={TRAIN_BATCH} in an NCCL "
+            f"group of one: {t['ms']['group_of_one']:.3f} ms/step against "
+            f"{t['ms']['one_process']:.3f} in one process")
+    gloo_ms = ", ".join(f"{v:.1f}" for v in parallel["gloo"]["ms"])
+    log(f"2 gloo ranks on one card, D0@512 f32 train BN, global B="
+        f"{GLOO_BATCH}: {gloo_ms} ms/step")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -8,7 +8,8 @@ hand-written kernels for the TPU kernels of the serving path: greedy NMS
 and the fused MBConv expand + depthwise in CUDA C++ (``csrc/``), the BiFPN
 fusion nodes in Triton (``kernels/fusion.py``). The training entry point
 is ``python -m efficientdet_tpu_torch.train`` (``train/driver.py``), with
-``.pth`` checkpoints that the JAX package reads (``utils/checkpoint.py``);
+``.pth`` checkpoints that the JAX package reads (``utils/checkpoint.py``)
+and data-parallel training over ``torch.distributed`` (``parallel/``);
 ``python -m efficientdet_tpu_torch.eval`` (``eval/``: VOC mAP, COCO AP)
 and ``python -m efficientdet_tpu_torch.demo`` evaluate and serve them.
 The configuration, the host data pipeline (datasets, transforms, loader)

@@ -17,6 +17,11 @@ the mask is drawn and applied outside it, so the recomputation never draws
 again (``checkpoint`` restores only torch's global RNG states, not an
 explicit generator), and the branch's BatchNorms do not move their running
 statistics a second time while it is recomputed.
+
+Data parallelism: ``parallel.shard_train_step`` sets each block's
+``batch_shard`` to (rank, world size) for the length of a step, so the
+masks are the global batch's draw sliced to the rank's images
+(``layers.drop_connect``).
 """
 
 from __future__ import annotations
@@ -70,6 +75,7 @@ class MBConvBlock(nn.Module):
         self._bn2 = bn(ba.output_filters)
         self.id_skip = (ba.id_skip and ba.stride == 1
                         and ba.input_filters == ba.output_filters)
+        self.batch_shard = (0, 1)
 
     def branch(self, x: torch.Tensor) -> torch.Tensor:
         """Everything but the skip: the part ``remat`` recomputes."""
@@ -93,7 +99,8 @@ class MBConvBlock(nn.Module):
             return y
         if self.training and self.drop_connect_rate > 0:
             # Looked up in this module at call time, so a test can patch it.
-            y = drop_connect(y, self.drop_connect_rate, generator)
+            y = drop_connect(y, self.drop_connect_rate, generator,
+                             self.batch_shard)
         return y + x
 
     def _remat_contexts(self):

@@ -1,5 +1,6 @@
 """Shared building blocks: SAME-padded conv, BatchNorm (frozen, train and
-sync modes), swish, drop-connect, resizes.
+sync modes, with the global batch's statistics under data parallelism),
+swish, drop-connect, resizes.
 
 Counterpart of ``efficientdet_tpu/models/layers.py``. Tensors are logical
 NCHW in ``channels_last`` memory. Parameters stay float32, as the JAX
@@ -14,6 +15,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -76,6 +78,32 @@ class ConvModule(nn.Module):
 
 BN_MODES = ("frozen", "train", "sync")
 
+SYNC_REFUSAL = (
+    "bn_mode='sync' trains in neither package: the JAX package's sync "
+    "BatchNorm reduces over the mesh axis 'data', which no train step binds "
+    "(jax raises NameError: Found an unbound axis name: data). Use "
+    "bn_mode='train': under data parallelism (parallel.shard_train_step) it "
+    "normalizes by the statistics of the global batch")
+
+
+class _SumAcrossRanks(torch.autograd.Function):
+    """All-reduce SUM over a process group, differentiable: the gradient of
+    every rank's input is the all-reduce SUM of the upstream gradients,
+    since the sum feeds every rank's loss."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
 
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm in the JAX package's modes; eps 1e-3 and momentum 0.01,
@@ -90,12 +118,21 @@ class BatchNorm(nn.BatchNorm2d):
       0) reduced in float32 also for a bf16 input, as flax does. torch's
       own update would use the unbiased variance, so the buffers are
       updated here. In eval mode it is frozen.
-    - ``sync``: cross-device batch statistics; not ported yet (it needs the
-      data-parallel slice), so training mode raises. On one device the JAX
-      package cannot run it either: its axis name is unbound.
+    - ``sync``: refuses to train, as the JAX package's does
+      (``SYNC_REFUSAL``); in eval mode it is frozen.
+
+    ``group`` (set by ``parallel.shard_train_step`` for the length of a
+    step, as remat sets ``update_stats``): the process group of a
+    data-parallel step. In ``train`` mode the batch statistics are then the
+    global batch's, as a JAX data mesh gives them: each rank's per-channel
+    sum and sum of squares, in float32, all-reduced as one (2C,) tensor,
+    over the global count (every rank holds a batch of the same shape); the
+    backward sums across the ranks too. Every rank moves its running
+    statistics by the same global values, so they stay equal.
 
     ``update_stats`` off skips the buffer update: a rematerialized forward
-    recomputes the same batch and must not move the statistics twice.
+    recomputes the same batch and must not move the statistics twice (it
+    runs the collective again, on every rank alike).
     """
 
     def __init__(self, num_features: int, eps: float = 1e-3,
@@ -106,14 +143,16 @@ class BatchNorm(nn.BatchNorm2d):
                          device=default_device(device))
         self.mode = mode
         self.update_stats = True
+        self.group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.mode == "frozen" or not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
         if self.mode == "sync":
-            raise NotImplementedError(
-                "bn_mode='sync' needs the data-parallel slice of the port")
+            raise NotImplementedError(SYNC_REFUSAL)
+        if self.group is not None:
+            return self._global_batch_norm(x)
         if self.update_stats:
             with torch.no_grad():
                 xf = x.float()
@@ -121,13 +160,37 @@ class BatchNorm(nn.BatchNorm2d):
                 var = (xf * xf).mean(dim=(0, 2, 3)).sub_(mean * mean)
                 var.clamp_min_(0.0)
                 del xf
-                m = self.momentum
-                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+                self._move_running_stats(mean, var)
         # torch.batch_norm, not F.batch_norm: the latter refuses one value
         # per channel (B = 1 at a 1x1 level), where flax gives variance 0.
         return torch.batch_norm(x, self.weight, self.bias, None, None, True,
                                 0.0, self.eps, torch.backends.cudnn.enabled)
+
+    def _move_running_stats(self, mean: torch.Tensor, var: torch.Tensor
+                            ) -> None:
+        m = self.momentum
+        self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+        self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """``train``-mode BN over the global batch of ``self.group``, in
+        flax's arithmetic: ``(x - mean) * (rsqrt(var + eps) * scale) +
+        bias`` in float32, cast back to x's dtype."""
+        c = x.shape[1]
+        xf = x.float()
+        sums = _SumAcrossRanks.apply(
+            torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3))]),
+            self.group)
+        count = x.numel() // c * dist.get_world_size(self.group)
+        mean = sums[:c] / count
+        var = (sums[c:] / count - mean * mean).clamp_min(0.0)
+        if self.update_stats:
+            with torch.no_grad():
+                self._move_running_stats(mean, var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias[:, None, None]
+        return y.to(x.dtype)
 
 
 def swish(x: torch.Tensor) -> torch.Tensor:
@@ -136,15 +199,25 @@ def swish(x: torch.Tensor) -> torch.Tensor:
 
 
 def drop_connect(x: torch.Tensor, rate: float,
-                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                 generator: Optional[torch.Generator] = None,
+                 shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """Stochastic depth: drop each sample's residual with probability
     ``rate`` and rescale the survivors, ``x / keep * floor(keep + u)``, u ~
     U[0, 1) of shape (B, 1, 1, 1). As in JAX, u, keep and the arithmetic are
     in x's dtype, so in bf16 the drop probability is the bf16-rounded one.
-    ``generator`` must live on x's device (None: torch's default one)."""
+    ``generator`` must live on x's device (None: torch's default one).
+
+    ``shard`` = (rank, world): x is one rank's batch of a data-parallel
+    step, whose image j is the global batch's image ``world * j + rank``
+    (the loader's split). The global batch's (world * B,) uniforms are
+    drawn and ``[rank::world]`` kept, so every image gets the mask a
+    one-process step over the global batch gives it; (0, 1) draws what a
+    one-process step draws."""
+    rank, world = shard
     keep = torch.full((), 1.0 - rate, dtype=x.dtype, device=x.device)
-    u = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), dtype=x.dtype,
-                   device=x.device, generator=generator)
+    u = torch.rand((x.shape[0] * world,) + (1,) * (x.dim() - 1),
+                   dtype=x.dtype, device=x.device,
+                   generator=generator)[rank::world]
     return x / keep * torch.floor(keep + u)
 
 

@@ -15,6 +15,20 @@ printed lines, the ``MetricLogger`` records and a checkpoint per epoch
         --input_size 128 --batch_size 2 --synthetic_length 4 --num_epoch 2
     python -m efficientdet_tpu_torch.train --dataset VOC \\
         --dataset_root ~/data/VOCdevkit --resume ./saved/weights/VOC/efficientdet-d0
+    python -m efficientdet_tpu_torch.train --num_devices 2 --device cpu \\
+        --dataset synthetic --input_size 128 --batch_size 4
+    torchrun --nproc_per_node 8 -m efficientdet_tpu_torch.train --multihost \\
+        --dataset VOC --bf16 --batch_size 256
+
+Data parallelism (``parallel/``), as ``train.py``'s: ``--batch_size`` is
+the global batch, split evenly over the ranks, one process per card (NCCL;
+gloo with ``--device cpu``). Under a launcher's environment (``torchrun``:
+``RANK``, ``WORLD_SIZE``, ...) every process joins its group; otherwise
+``--num_devices N`` > 1 spawns N local processes. Each rank loads its own
+part of every global batch, all take the same step (the gradient and the
+losses averaged over the ranks, ``train``-mode BatchNorm over the global
+batch), and rank 0 alone prints, logs and saves; the others wait for the
+save before going on.
 
 A resumed run continues the one it resumes: the loader shuffles by the
 epoch number and the training transform's random state comes back from
@@ -25,7 +39,9 @@ took next (the JAX driver restarts both).
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import tempfile
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -33,9 +49,10 @@ import torch
 
 from ..config import EFFICIENTDET, DetectorConfig
 from ..data import (CocoDataset, DataLoader, SyntheticDetection, VOCDetection,
-                    eval_transforms, to_device, train_transforms)
-from ..device import default_device
+                    eval_transforms, train_transforms)
 from ..models import EfficientDet
+from ..parallel import (Mesh, create_mesh, launcher_env, mean_across_ranks,
+                        put_batch, put_replicated, shard_train_step)
 from ..utils import checkpoint as ckpt
 from ..utils.visualization import MetricLogger
 from .train_lib import (OptimizerConfig, PlateauScheduler, create_train_state,
@@ -54,7 +71,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "directory unless absolute)")
     p.add_argument("--network", default="efficientdet-d0")
     p.add_argument("--num_epoch", type=int, default=500)
-    p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--batch_size", type=int, default=32,
+                   help="GLOBAL batch size (split evenly over the ranks)")
     p.add_argument("--num_class", type=int, default=None,
                    help="default: dataset's class count")
     p.add_argument("--lr", "--learning-rate", type=float, default=1e-4)
@@ -83,8 +101,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--save_every", type=int, default=1)
     p.add_argument("--bn_mode", default="frozen",
                    choices=["frozen", "train", "sync"],
-                   help="sync needs data-parallel training, not ported yet "
-                        "(ROADMAP A15): its first train step raises")
+                   help="train normalizes by the statistics of the global "
+                        "batch, across the ranks; sync trains in neither "
+                        "package (its axis is never bound in JAX): its "
+                        "first train step raises")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute (f32 params)")
     p.add_argument("--remat", action="store_true",
@@ -95,13 +115,21 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "driver's --platform; 'cpu' trains on the CPU. "
                         "Without a card, 'cuda' raises")
     p.add_argument("--num_devices", type=int, default=None,
-                   help="data-parallel width: only 1 until data-parallel "
-                        "training is ported (ROADMAP A15); others raise")
+                   help="data-parallel ranks, one process each: under a "
+                        "launcher (torchrun) it must equal WORLD_SIZE; "
+                        "otherwise N > 1 spawns N local processes, one per "
+                        "card over NCCL, or on the CPU over gloo with "
+                        "--device cpu (default: every visible card; 1 on "
+                        "the CPU)")
     p.add_argument("--spatial_shards", type=int, default=1,
-                   help="activation-height sharding of the JAX driver: only "
-                        "1 until ROADMAP A15; others raise")
+                   help="activation-height sharding of the JAX driver: not "
+                        "ported (PyTorch inserts no halo exchanges; ROADMAP "
+                        "A17), only 1")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-host training: raises until ROADMAP A15")
+                   help="join the process group of a launcher's "
+                        "environment (torchrun, or RANK, WORLD_SIZE, "
+                        "MASTER_ADDR, MASTER_PORT set), at any WORLD_SIZE "
+                        "including 1; raises without one")
     p.add_argument("--native_loader", default="off",
                    choices=["auto", "on", "off"],
                    help="C++ decode/augment pipeline: not ported yet "
@@ -178,29 +206,66 @@ def build_dataset(args: argparse.Namespace, train: bool, input_size: int):
                               seed=args.seed if train else args.seed + 777)
 
 
-def _refuse_unported(args: argparse.Namespace) -> None:
-    if args.multihost:
-        raise NotImplementedError(
-            "--multihost: multi-host training is not ported yet (ROADMAP "
-            "A15)")
-    for flag, value in (("--num_devices", args.num_devices or 1),
-                        ("--spatial_shards", args.spatial_shards)):
-        if value != 1:
-            raise NotImplementedError(
-                f"{flag} {value}: the port trains on one card until "
-                "data-parallel training is ported (ROADMAP A15)")
+def local_ranks_to_spawn(args: argparse.Namespace) -> int:
+    """How many local processes ``main`` spawns: 0 to train in this
+    process, which is one process or one rank of a launcher's group.
+    Raises for the data-parallel settings that cannot train."""
+    if args.spatial_shards != 1:
+        raise NotImplementedError(f"--spatial_shards {args.spatial_shards}: "
+                                  "activation-height sharding is not "
+                                  "ported (ROADMAP A17)")
+    env = launcher_env()
+    if args.multihost and env is None:
+        raise RuntimeError(
+            "--multihost joins a launcher's process group and needs its "
+            "environment: RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT "
+            "(torchrun sets them)")
+    if env is not None:
+        if args.num_devices not in (None, env[1]):
+            raise ValueError(f"--num_devices {args.num_devices}, but the "
+                             f"launcher's WORLD_SIZE is {env[1]}")
+        return 0
+    cuda = torch.device(args.device).type == "cuda"
+    n = args.num_devices or (max(torch.cuda.device_count(), 1) if cuda
+                             else 1)
+    if cuda and n > 1 and n > torch.cuda.device_count():
+        raise ValueError(
+            f"--num_devices {n} --device {args.device}: this host has "
+            f"{torch.cuda.device_count()} CUDA card(s), and each rank needs "
+            "one of its own")
+    if args.batch_size % n:
+        raise ValueError(f"global batch {args.batch_size} must divide over "
+                         f"{n} devices")
+    return n if n > 1 else 0
 
 
 class Trainer:
     """Everything the driver builds before its epoch loop, and the loop.
 
     ``state`` is the ``TrainState``; ``fit`` runs the epochs from
-    ``start_epoch`` and returns the summary ``main`` returns."""
+    ``start_epoch`` and returns the summary ``main`` returns. ``mesh`` is
+    the rank's data-parallel group (``parallel.create_mesh``); by default
+    the launcher's, or one process."""
 
-    def __init__(self, args: argparse.Namespace):
-        _refuse_unported(args)
+    def __init__(self, args: argparse.Namespace, mesh: Optional[Mesh] = None):
+        if mesh is None:
+            if local_ranks_to_spawn(args):
+                raise ValueError(
+                    f"--num_devices {args.num_devices} needs that many "
+                    "processes: main() spawns them, or start them with "
+                    "torchrun")
+            mesh = create_mesh(args.num_devices, args.spatial_shards,
+                               device=args.device)
+        self.mesh = mesh
+        world = mesh.world_size
+        if args.batch_size % world:
+            raise ValueError(f"global batch {args.batch_size} must divide "
+                             f"over {world} devices")
+        rank_batch = args.batch_size // world
+        # Rank 0 alone prints, logs and saves, as the JAX driver's chief.
+        self.log = print if mesh.is_chief else (lambda *a, **k: None)
         self.args = args
-        self.device = default_device(args.device)
+        self.device = mesh.device
         input_size = (args.input_size
                       or EFFICIENTDET[args.network]["input_size"])
         # A .pth is self-describing: take num_class and network from its
@@ -215,8 +280,8 @@ class Trainer:
                               or EFFICIENTDET[args.network]["input_size"])
             if "num_class" in pth_meta:
                 args.num_class = pth_meta["num_class"]
-            print(f"recovered from {args.resume}: "
-                  + ", ".join(f"{k}={v}" for k, v in pth_meta.items()))
+            self.log(f"recovered from {args.resume}: "
+                     + ", ".join(f"{k}={v}" for k, v in pth_meta.items()))
         self.train_ds = build_dataset(args, True, input_size)
         num_classes = args.num_class or self.train_ds.num_classes()
 
@@ -233,7 +298,10 @@ class Trainer:
             learning_rate=args.lr, weight_decay=args.weight_decay,
             grad_clip_norm=args.grad_clip_norm,
             grad_accumulation_steps=args.grad_accumulation_steps))
-        print(f"device: {self.device} | batch: {args.batch_size}")
+        self.log(f"devices: {world} data x 1 spatial | processes: {world} "
+                 f"| global batch: {args.batch_size} | per-process: "
+                 f"{rank_batch} | per-device: {rank_batch} | device: "
+                 f"{self.device}")
         if args.pretrained_backbone:
             # Unlike the reference, which re-initializes every conv over
             # the downloaded blob, the imported weights are kept, as in the
@@ -243,8 +311,8 @@ class Trainer:
                 self.cfg.backbone_name, self.model,
                 path=(None if args.pretrained_backbone == "download"
                       else args.pretrained_backbone))
-            print(f"initialized {self.cfg.backbone_name} backbone from "
-                  f"{args.pretrained_backbone}")
+            self.log(f"initialized {self.cfg.backbone_name} backbone from "
+                     f"{args.pretrained_backbone}")
         self.save_dir = os.path.join(args.save_folder, args.dataset,
                                      args.network)
         # The training transform's random state (flips), saved and restored
@@ -255,12 +323,17 @@ class Trainer:
         if args.resume:
             self.state, self.start_epoch = ckpt.restore_checkpoint(
                 args.resume, self.state, rng=self.rng)
-            print(f"resumed from {args.resume} at epoch {self.start_epoch}")
+            self.log(f"resumed from {args.resume} at epoch "
+                     f"{self.start_epoch}")
+        # Every rank built and resumed the same state; rank 0's is taken.
+        self.state = put_replicated(self.state, mesh)
 
-        self.train_step = make_train_step(self.model, self.cfg)
+        self.train_step = shard_train_step(
+            make_train_step(self.model, self.cfg), mesh)
         self.loader = DataLoader(
-            self.train_ds, args.batch_size, shuffle=True,
+            self.train_ds, rank_batch, shuffle=True,
             max_boxes=args.max_boxes, seed=args.seed,
+            shard_index=mesh.rank, num_shards=world,
             native=args.native_loader, image_size=input_size, flip_prob=0.5,
             cache="ram" if args.cache_images else "off",
             uint8_images=args.device_normalize)
@@ -273,33 +346,38 @@ class Trainer:
         try:
             val_ds = build_dataset(args, False, input_size)
             self.val_loader = DataLoader(
-                val_ds, args.batch_size, shuffle=False,
+                val_ds, rank_batch, shuffle=False,
                 max_boxes=args.max_boxes, drop_last=True,
+                shard_index=mesh.rank, num_shards=world,
                 native=args.native_loader, image_size=input_size,
                 uint8_images=args.device_normalize)
         except (FileNotFoundError, OSError):
             self.val_loader = None  # no val split on disk
-        self.logger = MetricLogger(args.log_dir, tensorboard=args.tensorboard)
+        self.logger = MetricLogger(args.log_dir if mesh.is_chief else None,
+                                   tensorboard=args.tensorboard)
         self.global_step = 0
         self._profiler = None
 
     def validate(self) -> Optional[float]:
         """The mean validation loss (cls + reg) over the validation loader,
-        summed on the device and fetched once; None without one."""
+        summed on the device, averaged over the ranks and fetched once;
+        None without one."""
         if self.val_loader is None or len(self.val_loader) == 0:
             return None
         total, steps = None, 0
         for vbatch in self.val_loader:
             cls_loss, reg_loss = self.val_loss_step(
-                to_device(vbatch, self.device))
+                put_batch(vbatch, self.mesh))
             s = cls_loss + reg_loss
             total = s if total is None else total + s
             steps += 1
-        return float(total) / steps if steps else None
+        return (float(mean_across_ranks(total, self.mesh)) / steps
+                if steps else None)
 
     def _profile(self, before_step: bool) -> None:
-        """A torch.profiler trace of global steps 5-10 into --profile_dir."""
-        if not self.args.profile_dir:
+        """A torch.profiler trace of global steps 5-10 into --profile_dir,
+        on rank 0."""
+        if not self.args.profile_dir or not self.mesh.is_chief:
             return
         if before_step and self.global_step == 5:
             activities = [torch.profiler.ProfilerActivity.CPU]
@@ -323,7 +401,7 @@ class Trainer:
         t0 = time.time()
         loss_sum, steps, first = None, 0, None
         for it, batch in enumerate(self.loader):
-            batch = to_device(batch, self.device)
+            batch = put_batch(batch, self.mesh)
             self._profile(before_step=True)
             metrics = self.train_step(self.state, batch, args.seed + 1)
             self._profile(before_step=False)
@@ -335,19 +413,19 @@ class Trainer:
                 m = {k: float(v) for k, v in metrics.items()}
                 first = m if it == 0 else first
                 lr_now = get_learning_rate(self.state.optimizer)
-                print(f"epoch {epoch} it {it}/{len(self.loader)} "
-                      f"loss {m['loss']:.4f} "
-                      f"(cls {m['cls_loss']:.4f} "
-                      f"reg {m['reg_loss']:.4f}) "
-                      f"lr {lr_now:.2e}")
+                self.log(f"epoch {epoch} it {it}/{len(self.loader)} "
+                         f"loss {m['loss']:.4f} "
+                         f"(cls {m['cls_loss']:.4f} "
+                         f"reg {m['reg_loss']:.4f}) "
+                         f"lr {lr_now:.2e}")
                 self.logger.update(self.global_step, loss=m["loss"],
                                    cls_loss=m["cls_loss"],
                                    reg_loss=m["reg_loss"], lr=lr_now)
         epoch_loss = float(loss_sum) / steps if steps else float("nan")
         dt = time.time() - t0
         ips = len(self.loader) * args.batch_size / max(dt, 1e-9)
-        print(f"epoch {epoch} done: loss {epoch_loss:.4f} "
-              f"({dt:.1f}s, {ips:.1f} img/s)")
+        self.log(f"epoch {epoch} done: loss {epoch_loss:.4f} "
+                 f"({dt:.1f}s, {ips:.1f} img/s)")
         self.logger.update(self.global_step, epoch=epoch,
                            epoch_loss=epoch_loss, images_per_sec=ips)
         return {"loss": epoch_loss, "img_s": ips, "seconds": dt,
@@ -369,17 +447,20 @@ class Trainer:
             if args.eval_every and (epoch + 1) % args.eval_every == 0:
                 val = self.validate()
                 if val is not None:
-                    print(f"epoch {epoch} val loss: {val:.4f}")
+                    self.log(f"epoch {epoch} val loss: {val:.4f}")
                     self.logger.update(self.global_step, val_loss=val)
             if self.scheduler is not None:
                 set_learning_rate(self.state.optimizer, self.scheduler.step(
                     out["loss"], get_learning_rate(self.state.optimizer)))
             if (epoch + 1) % args.save_every == 0:
-                path = ckpt.save_checkpoint(self.save_dir, self.state,
-                                            self.cfg, epoch, args=args,
-                                            rng=self.rng)
-                print(f"saved checkpoint -> {path}")
-                summary["checkpoints"].append(path)
+                if self.mesh.is_chief:
+                    path = ckpt.save_checkpoint(self.save_dir, self.state,
+                                                self.cfg, epoch, args=args,
+                                                rng=self.rng)
+                    self.log(f"saved checkpoint -> {path}")
+                    summary["checkpoints"].append(path)
+                # No rank runs ahead to a resume of a half-written blob.
+                self.mesh.barrier()
             summary["epochs"].append(epoch)
             summary["epoch_loss"].append(out["loss"])
             summary["img_s"].append(out["img_s"])
@@ -391,7 +472,45 @@ class Trainer:
         return summary
 
 
+def _rank_main(local_rank: int, args: argparse.Namespace, world: int,
+               init_method: str, summary_path: str) -> None:
+    """One spawned rank: a launcher's environment for this host, the group
+    through ``init_method``, the training; rank 0 writes its summary."""
+    os.environ.update(RANK=str(local_rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(local_rank),
+                      LOCAL_WORLD_SIZE=str(world))
+    if torch.device(args.device).type == "cpu" and \
+            "OMP_NUM_THREADS" not in os.environ:
+        # The ranks share the host's cores, as torchrun's would.
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    mesh = create_mesh(world, args.spatial_shards, device=args.device,
+                       init_method=init_method)
+    try:
+        summary = Trainer(args, mesh).fit()
+    finally:
+        mesh.close()
+    if mesh.is_chief:
+        with open(summary_path, "w") as f:
+            json.dump(summary, f)
+
+
 def main(argv: Optional[List[str]] = None) -> Dict:
     """Parse ``argv`` (default: the command line), train, and return the
-    summary of ``Trainer.fit``."""
-    return Trainer(parse_args(argv)).fit()
+    summary of ``Trainer.fit``: rank 0's, also when it spawned the ranks.
+    A rank that fails ends the others and raises here."""
+    args = parse_args(argv)
+    world = local_ranks_to_spawn(args)
+    if world:
+        with tempfile.TemporaryDirectory() as tmp:
+            summary_path = os.path.join(tmp, "summary.json")
+            torch.multiprocessing.start_processes(
+                _rank_main, nprocs=world, start_method="spawn",
+                args=(args, world, "file://" + os.path.join(tmp, "rendezvous"),
+                      summary_path))
+            with open(summary_path) as f:
+                return json.load(f)
+    trainer = Trainer(args)
+    try:
+        return trainer.fit()
+    finally:
+        trainer.mesh.close()

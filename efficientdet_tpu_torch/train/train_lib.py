@@ -18,7 +18,7 @@ Counterpart of ``efficientdet_tpu/train/train_lib.py``:
   model's training mode: the step puts the model in it; BatchNorm running
   statistics move only with ``cfg.bn_mode == 'train'``. The drop-connect
   generator of a step is seeded from ``(seed, step)``, as JAX folds the
-  step into its key.
+  step into its key. Its data-parallel form is ``parallel.shard_train_step``.
 - ``PlateauScheduler``: a copy of the JAX package's (which lives in a
   module that imports jax and optax), torch's ReduceLROnPlateau semantics.
 """
@@ -206,17 +206,22 @@ def step_generator(seed: int, step: int, device: torch.device
 
 
 def make_train_step(model: EfficientDet, cfg: DetectorConfig
-                    ) -> Callable[[TrainState, Dict, int],
-                                  Dict[str, torch.Tensor]]:
+                    ) -> Callable[..., Dict[str, torch.Tensor]]:
     """(state, batch {'images', 'annotations'} on the model's device, seed)
     -> metrics {'loss', 'cls_loss', 'reg_loss', 'grad_norm'} as 0-dim
     device tensors (no host sync). Updates ``state`` in place and advances
     ``state.step``; ``grad_norm`` is the global norm of this call's raw
-    gradient."""
+    gradient.
+
+    ``reduce_gradients(grads)``, when given, replaces the raw gradients in
+    place before the norm and the update: ``parallel.shard_train_step``
+    passes the mean over the data-parallel ranks."""
     cfg = cfg.resolve()
     anchor_levels = anchor_levels_for_model(model)
 
-    def train_step(state: TrainState, batch: Dict, seed: int
+    def train_step(state: TrainState, batch: Dict, seed: int,
+                   reduce_gradients: Optional[
+                       Callable[[List[torch.Tensor]], None]] = None
                    ) -> Dict[str, torch.Tensor]:
         images = maybe_normalize_images(batch["images"])
         state.model.train()
@@ -226,6 +231,8 @@ def make_train_step(model: EfficientDet, cfg: DetectorConfig
             cls_levels, reg_levels, anchor_levels, batch["annotations"], cfg)
         loss = cls_loss + reg_loss
         grads = list(torch.autograd.grad(loss, state.params))
+        if reduce_gradients is not None:
+            reduce_gradients(grads)
         grad_norm = global_norm(grads)
         state.apply_gradients(grads)
         state.step += 1

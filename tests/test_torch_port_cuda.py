@@ -367,3 +367,25 @@ def test_demo_detect_serves_on_the_card(cuda, tmp_path):
     assert nms_select.launches - before == 1
     assert boxes.shape == (100, 4) and np.isfinite(boxes).all()
     assert boxes.min() >= 0 and boxes.max() <= 128
+
+
+def test_nccl_refuses_more_ranks_than_cards(cuda, monkeypatch, tmp_path):
+    """NCCL needs a card per rank: a launcher's environment with more local
+    ranks than cards raises before any process group is made, on every
+    rank alike; so does the training driver's --num_devices."""
+    from efficientdet_tpu_torch.parallel import create_mesh
+    from efficientdet_tpu_torch.train import driver
+    n = torch.cuda.device_count()
+    for key, value in (("RANK", "0"), ("WORLD_SIZE", str(n + 1)),
+                       ("LOCAL_RANK", "0"), ("LOCAL_WORLD_SIZE", str(n + 1))):
+        monkeypatch.setenv(key, value)
+    with pytest.raises(ValueError, match="card of its own"):
+        create_mesh(device="cuda",
+                    init_method="file://" + str(tmp_path / "rendezvous"))
+    assert not torch.distributed.is_initialized()
+    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        monkeypatch.delenv(key)
+    with pytest.raises(ValueError, match="each rank needs one of its own"):
+        driver.main(["--dataset", "synthetic", "--num_devices", str(n + 1),
+                     "--batch_size", str(n + 1), "--save_folder",
+                     str(tmp_path)])

@@ -435,22 +435,26 @@ def test_backbone_import_rejects_unknown_keys():
 
 # ------------------------------------------------------------ refused flags
 REFUSED = {
-    "multihost": (["--multihost"], NotImplementedError, "A15"),
-    "num_devices": (["--num_devices", "2"], NotImplementedError, "A15"),
-    "spatial_shards": (["--spatial_shards", "2"], NotImplementedError, "A15"),
+    "multihost": (["--multihost"], RuntimeError, "launcher"),
+    "num_devices": (["--num_devices", "3"], ValueError,
+                    "global batch 2 must divide over 3"),
+    "spatial_shards": (["--spatial_shards", "2"], NotImplementedError, "A17"),
     "native_auto": (["--native_loader", "auto"], NotImplementedError, "A13"),
     "native_on": (["--native_loader", "on"], NotImplementedError, "A13"),
     "augment_full": (["--augment", "full"], NotImplementedError, "A13"),
-    "bn_sync": (["--bn_mode", "sync"], NotImplementedError, "sync"),
+    "bn_sync": (["--bn_mode", "sync"], NotImplementedError,
+                "unbound axis name"),
     "card_without_one": (["--device", "cuda"], RuntimeError, "device='cpu'"),
 }
 
 
 @pytest.mark.parametrize("name", list(REFUSED))
-def test_refused_flags_raise(name, tmp_path):
+def test_refused_flags_raise(name, tmp_path, monkeypatch):
     extra, error, match = REFUSED[name]
     if name == "card_without_one" and torch.cuda.is_available():
         pytest.skip("this host has a card")
+    for key in ("RANK", "WORLD_SIZE"):  # no launcher's environment
+        monkeypatch.delenv(key, raising=False)
     argv = ARGV + ["--num_epoch", "1", "--save_folder", str(tmp_path)] + extra
     with pytest.raises(error, match=match):
         driver.main(argv)

@@ -314,6 +314,25 @@ with tempfile.TemporaryDirectory() as out:
                      alter_sys=True)
     blob = os.path.join(out, "synthetic", "efficientdet-d0", "checkpoint_0.pth")
     assert os.path.isfile(blob)
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    launcher = dict(RANK="0", WORLD_SIZE="1", MASTER_ADDR="localhost",
+                    MASTER_PORT=str(port))
+    os.environ.update(launcher)
+    sys.argv[sys.argv.index(out)] = os.path.join(out, "group")
+    sys.argv.append("--multihost")
+    runpy.run_module("efficientdet_tpu_torch.train", run_name="__main__",
+                     alter_sys=True)
+    for key in launcher:
+        del os.environ[key]
+    assert not torch.distributed.is_initialized()
+    same = [torch.load(os.path.join(folder, "synthetic", "efficientdet-d0",
+                                    "checkpoint_0.pth"), weights_only=False)[
+                "state_dict"]
+            for folder in (out, os.path.join(out, "group"))]
+    assert all(torch.equal(v, same[1][k]) for k, v in same[0].items())
     sys.argv = ["efficientdet_tpu_torch.eval", "--dataset", "synthetic",
                 "--device", "cpu", "--weight", blob, "--synthetic_length", "3",
                 "--batch_size", "2", "--threshold", "0.0"]
@@ -336,7 +355,9 @@ def test_port_runs_with_jax_blocked():
     slice, with the fusion kernels and with the fused MBConv backbone,
     takes a train step from its own data path's batches, ``python -m
     efficientdet_tpu_torch.train`` trains an epoch on the CPU and writes
-    its checkpoint, ``python -m efficientdet_tpu_torch.eval`` evaluates
+    its checkpoint, and again with ``--multihost`` in a world-size-1 gloo
+    group of a launcher's environment (the same checkpoint, bit for bit),
+    ``python -m efficientdet_tpu_torch.eval`` evaluates
     that checkpoint, and the demo's ``Detect.process`` serves an image at
     the model's size from it."""
     # One intra-op thread: beside the other test workers, a process of one

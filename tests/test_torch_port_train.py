@@ -117,7 +117,7 @@ def _port_model(variables, cfg, **kwargs):
 
 def _port_step(model, cfg, batch, masks):
     """One port train step -> (metrics, {parameter name: raw gradient})."""
-    def fake_drop_connect(x, rate, generator=None):
+    def fake_drop_connect(x, rate, generator=None, shard=(0, 1)):
         return x / (1.0 - rate) * torch.from_numpy(masks[_block(rate)])
 
     state = create_train_state(model)
