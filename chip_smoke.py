@@ -12,7 +12,10 @@ at batch 32 with validation and checkpoints, a resume from the first
 checkpoint, a ``--device_normalize`` pass), drives the evaluation and demo
 entry points (``efficientdet_tpu_torch.eval.driver`` at batch 8 and 32,
 with and without the fused backbone, the card's f32 APs against the CPU's,
-and ``efficientdet_tpu_torch.demo.Detect``), and times
+and ``efficientdet_tpu_torch.demo.Detect``), builds the C++ JPEG batch
+pipeline (``efficientdet_tpu_torch.native``, g++ and libjpeg; where the
+host has no libjpeg it says so and checks the refusals) and drives both
+entry points on a VOC tree of JPEG files (``phase_native``), and times
 the steps and the kernels: each kernel beside its plain version and its
 bound (the larger of its bytes over the H100's 3.35 TB/s and its operations
 over the peak rate of their type), the fused MBConv kernel also per block
@@ -1094,60 +1097,21 @@ def phase_driver(torch, dev, train):
     world-size-1 process group's run to the first run bit for bit: the
     first run's epoch losses and last checkpoint come back in
     ``out['reference']``."""
-    import math
-
     from efficientdet_tpu_torch.train import driver
 
     torch.backends.cudnn.deterministic = True
     counters = reset_launches()
-
-    def finite(summary, label):
-        values = summary["epoch_loss"] + summary["val_loss"] + [
-            v for m in summary["first_step"] for v in m.values()]
-        check(all(v is not None and math.isfinite(v) for v in values),
-              f"driver {label}: non-finite losses {summary}")
-
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        snaps = {}
-        trainer = driver.Trainer(driver.parse_args(
-            DRIVER_ARGV + ["--save_folder", os.path.join(tmp, "a")]))
-        check(trainer.model.backbone._conv_stem.weight.is_cuda,
-              "driver model not on the card")
-        first = trainer.fit(lambda epoch, t: snaps.setdefault(
-            epoch, train_state_snapshot(t.state)))
-        finite(first, "run")
-        check(len(first["checkpoints"]) == 2, f"checkpoints {first}")
+        first, _ = train_and_resume(torch, DRIVER_ARGV, tmp, "driver")
         out["reference"] = {
             "epoch_loss": first["epoch_loss"],
             "blob": torch.load(first["checkpoints"][-1], map_location="cpu",
                                weights_only=False)}
-        del trainer
-
-        resumed = driver.Trainer(driver.parse_args(
-            DRIVER_ARGV + ["--save_folder", os.path.join(tmp, "b"),
-                           "--resume", first["checkpoints"][0]]))
-        check(resumed.start_epoch == 1, f"resumed at {resumed.start_epoch}")
-        n = check_snapshots_equal(torch, train_state_snapshot(resumed.state),
-                                  snaps[0])
-        del snaps
-        second = resumed.fit()
-        finite(second, "resume")
-        got, want = second["first_step"][0], first["first_step"][1]
-        for key in ("loss", "cls_loss", "reg_loss"):
-            check(got[key] == want[key],
-                  f"resumed first step {key} {got[key]} != {want[key]}")
-        rel = abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"]
-        check(rel <= 1e-4, f"resumed first step grad_norm off by {rel}")
-        log(f"driver resume from checkpoint_0.pth: {n} tensors torch.equal "
-            f"to the state in memory after epoch 0; epoch 1's first step "
-            f"loss {got['loss']:.6f} (cls {got['cls_loss']:.6f}, reg "
-            f"{got['reg_loss']:.6f}) equal, grad_norm off by {rel:.3g}")
-        del resumed
 
         normalized = driver.main(DRIVER_ARGV + [
             "--device_normalize", "--save_folder", os.path.join(tmp, "c")])
-        finite(normalized, "--device_normalize")
+        check_finite_summary(normalized, "--device_normalize")
     torch.cuda.synchronize()
     torch.backends.cudnn.deterministic = False
     launches = launch_counts(counters)
@@ -1648,8 +1612,8 @@ def phase_eval(torch, dev, cfg, state, overfit_state):
       counts, the mAP and every class's AP within ``EVAL_AP_TOL``;
     - the demo's ``Detect.process`` on one 512 x 512 image: boxes, labels
       and scores equal to the eval step's on the same image (scale 1), one
-      NMS launch. Only what runs without cv2 is called (the card's host has
-      none): at the model's size the resize is the identity. The demo's
+      NMS launch. Only what runs without cv2 is called (a host may lack
+      it): at the model's size the resize is the identity. The demo's
       file and camera branches are covered by the CPU tests;
     - the model ``check_overfit`` leaves, evaluated (``evaluate_model``
       with the eval driver's step, f32, threshold 0, B = 8) on the 8 images
@@ -1836,6 +1800,468 @@ def phase_eval(torch, dev, cfg, state, overfit_state):
                 f"the card, {cpu_map:.6f} on the CPU (the kernels' plain "
                 f"versions; the value recorded, not gated); class APs within "
                 f"{ap_err:.3g}, sorted scores within {score_err:.3g}")
+    return totals
+
+
+# The C++ batch pipeline and the entry points on files (phase_native).
+NATIVE_DEMO = os.path.join(HERE, "docs", "demo_minivoc20.jpg")
+NATIVE_TARGETS = (512, 384, 640)
+NATIVE_PIXEL_BATCH = 8
+# The C++ against its plain numpy version on the same decoded pixels: the
+# same float32 operations in the same order; 1e-5 leaves room for a
+# compiler that contracts them into FMAs.
+NATIVE_PLAIN_TOL = 1e-5
+NATIVE_IMAGES = 64        # trainval and test copies of the demo image
+NATIVE_TRAIN_ARGV = ["--dataset", "VOC", "--network", "efficientdet-d0",
+                     "--bf16", "--batch_size", "32", "--num_epoch", "2",
+                     "--eval_every", "1"]
+
+
+def splice_exif_orientation(jpeg_bytes: bytes, orientation: int) -> bytes:
+    """An APP1/EXIF segment with the given orientation inserted after SOI."""
+    tiff = (b"MM" + (42).to_bytes(2, "big") + (8).to_bytes(4, "big")
+            + (1).to_bytes(2, "big")                       # 1 IFD entry
+            + (0x0112).to_bytes(2, "big")                  # orientation tag
+            + (3).to_bytes(2, "big")                       # SHORT
+            + (1).to_bytes(4, "big")                       # count
+            + orientation.to_bytes(2, "big") + b"\x00\x00"
+            + (0).to_bytes(4, "big"))                      # next IFD
+    payload = b"Exif\x00\x00" + tiff
+    app1 = b"\xff\xe1" + (len(payload) + 2).to_bytes(2, "big") + payload
+    return jpeg_bytes[:2] + app1 + jpeg_bytes[2:]
+
+
+def jpeg_dims(data: bytes):
+    """(width, height) from a JPEG's first SOF segment, without a decoder."""
+    p = 2
+    while p + 9 <= len(data) and data[p] == 0xFF:
+        marker, length = data[p + 1], int.from_bytes(data[p + 2:p + 4], "big")
+        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+            return (int.from_bytes(data[p + 7:p + 9], "big"),
+                    int.from_bytes(data[p + 5:p + 7], "big"))
+        p += 2 + length
+    raise ValueError("no SOF segment")
+
+
+def write_voc_copies(root: str, sets, seed: int) -> str:
+    """A VOCdevkit under ``root`` whose VOC2007 image sets (``sets``: name
+    -> count) are copies of the repository's demo JPEG, each with 1-4
+    boxes of random classes written from ``seed``."""
+    import numpy as np
+    from efficientdet_tpu_torch.data import VOC_CLASSES
+    data = open(NATIVE_DEMO, "rb").read()
+    w, h = jpeg_dims(data)
+    rng = np.random.RandomState(seed)
+    base = os.path.join(root, "VOC2007")
+    for sub in ("Annotations", os.path.join("ImageSets", "Main"),
+                "JPEGImages"):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    for name, count in sets.items():
+        ids = [f"{name}_{k:04d}" for k in range(count)]
+        for img_id in ids:
+            objects = ""
+            for _ in range(rng.randint(1, 5)):
+                bw, bh = rng.randint(32, w // 2), rng.randint(32, h // 2)
+                x1, y1 = rng.randint(1, w - bw), rng.randint(1, h - bh)
+                objects += (
+                    f"<object><name>{VOC_CLASSES[rng.randint(20)]}</name>"
+                    f"<difficult>0</difficult><bndbox><xmin>{x1}</xmin>"
+                    f"<ymin>{y1}</ymin><xmax>{x1 + bw}</xmax>"
+                    f"<ymax>{y1 + bh}</ymax></bndbox></object>")
+            with open(os.path.join(base, "Annotations", f"{img_id}.xml"),
+                      "w") as f:
+                f.write(f"<annotation>{objects}</annotation>")
+            with open(os.path.join(base, "JPEGImages", f"{img_id}.jpg"),
+                      "wb") as f:
+                f.write(data)
+        with open(os.path.join(base, "ImageSets", "Main", f"{name}.txt"),
+                  "w") as f:
+            f.write("\n".join(ids) + "\n")
+    return root
+
+
+def annotate_from_detections(root: str, det, scale: float,
+                             top: int = 12) -> None:
+    """Rewrite each image's XML in a tree of ``write_voc_copies`` with its
+    ``top`` highest detections of ``det`` (boxes in the resized image,
+    divided by its ``scale``) as the ground truth; ``parse_voc_xml`` takes
+    1 off every coordinate."""
+    from efficientdet_tpu_torch.data import VOC_CLASSES
+    base = os.path.join(root, "VOC2007")
+    ids = open(os.path.join(base, "ImageSets", "Main", "test.txt")
+               ).read().split()
+    for j, img_id in enumerate(ids):
+        valid = det.valid[j].cpu()
+        boxes = (det.boxes[j].cpu()[valid][:top] / scale).tolist()
+        classes = det.classes[j].cpu()[valid][:top].tolist()
+        objects = "".join(
+            f"<object><name>{VOC_CLASSES[c]}</name><difficult>0</difficult>"
+            f"<bndbox><xmin>{x1 + 1:.3f}</xmin><ymin>{y1 + 1:.3f}</ymin>"
+            f"<xmax>{x2 + 1:.3f}</xmax><ymax>{y2 + 1:.3f}</ymax></bndbox>"
+            f"</object>" for (x1, y1, x2, y2), c in zip(boxes, classes))
+        with open(os.path.join(base, "Annotations", f"{img_id}.xml"),
+                  "w") as f:
+            f.write(f"<annotation>{objects}</annotation>")
+
+
+def native_build_report():
+    """Build the port's native library on this host, or find out that it
+    cannot: (built, message). A host without ``jpeglib.h`` or ``-ljpeg``
+    is a report; a failed build where they are present fails the run."""
+    from efficientdet_tpu_torch import native
+    version = subprocess.run([native.compiler(), "--version"],
+                             capture_output=True, text=True, timeout=60)
+    log(f"native: {native.compiler()} "
+        f"{version.stdout.splitlines()[0] if version.stdout else '?'}; "
+        f"os.cpu_count() {os.cpu_count()}")
+    jpeg = native.libjpeg_version()
+    if jpeg is None:
+        try:
+            native.load()
+            check(False, "native library built without a libjpeg probe")
+        except native.NativeUnavailable as e:
+            first = str(e).splitlines()
+            message = next((line for line in first if "jpeglib.h" in line),
+                           first[-1] if first else str(e))
+        check(not native.available(), "native available without libjpeg")
+        log(f"native pipeline: not built on this host ({message})")
+        return False, message
+    t0 = time.perf_counter()
+    path = native.build()
+    seconds = time.perf_counter() - t0
+    native.load()
+    log(f"native: JPEG_LIB_VERSION {jpeg}; built {path.name} in "
+        f"{seconds:.2f} s")
+    return True, None
+
+
+def native_pixels(tmp: str) -> float:
+    """``decode_resize_batch`` at each of ``NATIVE_TARGETS``, B = 8 copies
+    of the demo JPEG with alternating flips, against the plain numpy
+    version on ``decode_rgb``'s pixels; an EXIF orientation-6 copy gives
+    ``ok`` False. Returns the largest difference."""
+    import numpy as np
+    from efficientdet_tpu_torch import native
+    paths = []
+    for k in range(NATIVE_PIXEL_BATCH):
+        paths.append(os.path.join(tmp, f"pixels_{k}.jpg"))
+        with open(paths[-1], "wb") as f:
+            f.write(open(NATIVE_DEMO, "rb").read())
+    rgb = native.decode_rgb(paths[0])
+    flips = [k % 2 == 1 for k in range(NATIVE_PIXEL_BATCH)]
+    err = 0.0
+    for target in NATIVE_TARGETS:
+        images, scales, ok = native.decode_resize_batch(paths, target, flips)
+        check(bool(ok.all()), f"native: ok {ok.tolist()} at {target}")
+        for flip in (False, True):
+            want, scale = native.resize_normalize_pad_plain(rgb, target, flip)
+            got = images[int(flip)]
+            e = float(np.abs(got - want).max())
+            check(e <= NATIVE_PLAIN_TOL and scales[int(flip)] == scale,
+                  f"native at {target} flip {flip}: off by {e}")
+            err = max(err, e)
+            check(all(np.array_equal(images[k], got)
+                      for k in range(int(flip), NATIVE_PIXEL_BATCH, 2)),
+                  f"native at {target}: copies differ")
+    rotated = os.path.join(tmp, "exif6.jpg")
+    with open(rotated, "wb") as f:
+        f.write(splice_exif_orientation(open(NATIVE_DEMO, "rb").read(), 6))
+    images, scales, ok = native.decode_resize_batch([paths[0], rotated], 512)
+    check(ok.tolist() == [True, False] and not images[1].any()
+          and scales[1] == 1.0, f"native EXIF-6: ok {ok.tolist()}")
+    log(f"native pixels against the plain version at {NATIVE_TARGETS}, "
+        f"B={NATIVE_PIXEL_BATCH}, alternating flips: within {err:.3g} "
+        f"(limit {NATIVE_PLAIN_TOL}); the EXIF-6 copy gives ok False")
+    return err
+
+
+def check_finite_summary(summary, label: str) -> None:
+    import math
+    values = summary["epoch_loss"] + summary["val_loss"] + [
+        v for m in summary["first_step"] for v in m.values()]
+    check(all(v is not None and math.isfinite(v) for v in values),
+          f"driver {label}: non-finite losses {summary}")
+
+
+def train_and_resume(torch, argv, tmp: str, label: str):
+    """``Trainer(parse_args(argv)).fit()`` for two epochs into ``tmp/a``,
+    the state kept after each, then a run resumed from its
+    ``checkpoint_0.pth`` into ``tmp/b``: the restored state ``torch.equal``
+    to the first run's after epoch 0, and the resumed epoch's first step
+    the first run's epoch-1 step (loss, cls and reg bit-equal, the gradient
+    norm within 1e-4 relative; cuDNN's weight gradients are not
+    bit-reproducible). Returns both summaries."""
+    from efficientdet_tpu_torch.train import driver
+    snaps = {}
+    trainer = driver.Trainer(driver.parse_args(
+        argv + ["--save_folder", os.path.join(tmp, "a")]))
+    check(trainer.model.backbone._conv_stem.weight.is_cuda,
+          f"{label} model not on the card")
+    first = trainer.fit(lambda epoch, t: snaps.setdefault(
+        epoch, train_state_snapshot(t.state)))
+    check_finite_summary(first, label)
+    check(len(first["checkpoints"]) == 2, f"checkpoints {first}")
+    del trainer
+    resumed = driver.Trainer(driver.parse_args(
+        argv + ["--save_folder", os.path.join(tmp, "b"),
+                "--resume", first["checkpoints"][0]]))
+    check(resumed.start_epoch == 1, f"resumed at {resumed.start_epoch}")
+    n = check_snapshots_equal(torch, train_state_snapshot(resumed.state),
+                              snaps[0])
+    del snaps
+    second = resumed.fit()
+    check_finite_summary(second, f"{label} resume")
+    got, want = second["first_step"][0], first["first_step"][1]
+    for key in ("loss", "cls_loss", "reg_loss"):
+        check(got[key] == want[key],
+              f"{label} resumed first step {key} {got[key]} != {want[key]}")
+    rel = abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"]
+    check(rel <= 1e-4, f"{label} resumed first step grad_norm off by {rel}")
+    log(f"{label} resume from checkpoint_0.pth: {n} tensors torch.equal "
+        f"to the state in memory after epoch 0; epoch 1's first step "
+        f"loss {got['loss']:.6f} (cls {got['cls_loss']:.6f}, reg "
+        f"{got['reg_loss']:.6f}) equal, grad_norm off by {rel:.3g}")
+    return first, second
+
+
+def host_rates(torch, dev, root: str, native_on: bool):
+    """The host data path alone, no step: ``decode_resize_batch`` at the
+    driver's B=32 on 1 and ``os.cpu_count()`` threads (where it built), ``eval_batches`` over
+    the test set, an epoch of the training loader (prefetch thread
+    included), and ``to_device`` of one B=32 float32 batch."""
+    from efficientdet_tpu_torch import native
+    from efficientdet_tpu_torch.data import DataLoader, to_device
+    from efficientdet_tpu_torch.data.loader import eval_batches
+    from efficientdet_tpu_torch.train import driver
+    mode = "on" if native_on else "off"
+    path = "native" if native_on else "Python (cv2)"
+    args = driver.parse_args(NATIVE_TRAIN_ARGV + ["--dataset_root", root])
+    test_ds = driver.build_dataset(args, False, IMAGE_SIZE)
+    b = min(args.batch_size, len(test_ds))
+    out = {}
+    if native_on:
+        paths = [test_ds.image_path(i) for i in range(b)]
+        native.decode_resize_batch(paths, IMAGE_SIZE)
+        for threads in (1, os.cpu_count()):
+            t0 = time.perf_counter()
+            for _ in range(3):
+                native.decode_resize_batch(paths, IMAGE_SIZE, threads=threads)
+            out[f"decode_{threads}"] = 3 * b / (time.perf_counter() - t0)
+            log(f"host: decode_resize_batch alone, B={b} at {IMAGE_SIZE}, "
+                f"{threads} threads: {out[f'decode_{threads}']:.1f} img/s")
+    t0 = time.perf_counter()
+    n = sum(len(idx) for idx, _, _ in eval_batches(
+        test_ds, b, image_size=IMAGE_SIZE, native=mode))
+    out["eval_batches"] = n / (time.perf_counter() - t0)
+    loader = DataLoader(driver.build_dataset(args, True, IMAGE_SIZE), b,
+                        native=mode, image_size=IMAGE_SIZE, flip_prob=0.5,
+                        seed=args.seed)
+    t0 = time.perf_counter()
+    batches = list(loader)
+    out["loader"] = len(batches) * b / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    to_device(batches[0], dev)
+    torch.cuda.synchronize()
+    out["to_device_ms"] = (time.perf_counter() - t0) * 1e3
+    log(f"host: {path} path alone, B={b} at {IMAGE_SIZE}: eval_batches "
+        f"{out['eval_batches']:.1f} img/s, training loader "
+        f"{out['loader']:.1f} img/s (epoch of {len(batches) * b}); "
+        f"to_device of one {batches[0]['images'].nbytes / 2 ** 20:.0f} MiB "
+        f"batch {out['to_device_ms']:.1f} ms")
+    return out
+
+
+def phase_native(torch, dev, profile_dir=None):
+    """The port's C++ batch pipeline (``efficientdet_tpu_torch.native``)
+    and both entry points on a VOC tree of JPEG files, on the card:
+
+    - the library is built with the host's C++ compiler (its version, the
+      build time, ``os.cpu_count()`` and libjpeg's ``JPEG_LIB_VERSION``
+      logged); where the host has no ``jpeglib.h`` or ``-ljpeg`` that is
+      reported, ``--native_loader on`` must raise with the compiler's
+      error and ``auto`` must take the Python path, counting no native
+      batch; a failed build where libjpeg is there fails the run;
+    - where it built: its pixels at 512, 384 and 640 against the plain
+      numpy version (``NATIVE_PLAIN_TOL``) and an EXIF-6 copy refused;
+    - a VOC tree of 64 trainval and 64 test copies of the repository's
+      demo JPEG with boxes written here; ``python -m
+      efficientdet_tpu_torch.train --dataset VOC`` (``--native_loader
+      on`` where it built, ``auto`` otherwise) at D0@512 bf16, B=32, two
+      epochs and a resumed epoch 1 checked as ``phase_driver`` checks it,
+      its img/s, native batches and fallbacks (0);
+    - ``--augment full`` for one epoch where cv2 imports; where it does
+      not, it must raise before the first step, naming cv2;
+    - ``python -m efficientdet_tpu_torch.eval --dataset VOC`` at B=8 and
+      32 with and without ``--fused_backbone``, in mirrored order: one NMS
+      launch per batch, 15 MBConv launches per fused batch (none
+      otherwise), no fusion launch, every detection finite and inside the
+      image; then f32 at threshold 0 on 8 test images on the card and with
+      ``--device cpu`` on the same batches, their ground truth rewritten
+      to the card's top detections of a first pass (so the mAP is not 0):
+      the mAP and each class's AP within ``EVAL_AP_TOL``;
+    - the host data path alone (``host_rates``); with ``profile_dir``, the
+      card's idle share over one evaluation pass.
+
+    Returns the launches of each kernel over the card's evaluation runs."""
+    import math
+
+    from efficientdet_tpu_torch import native
+    from efficientdet_tpu_torch.train import driver
+
+    built, error = native_build_report()
+    mode = "on" if built else "auto"
+    totals = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        if built:
+            native_pixels(tmp)
+        root = write_voc_copies(os.path.join(tmp, "voc"),
+                                {"trainval": NATIVE_IMAGES,
+                                 "test": NATIVE_IMAGES}, SEED + 20)
+        parity_root = write_voc_copies(os.path.join(tmp, "parity"),
+                                       {"test": EVAL_PARITY_IMAGES},
+                                       SEED + 21)
+        train_argv = NATIVE_TRAIN_ARGV + ["--dataset_root", root,
+                                          "--native_loader", mode]
+        if not built:
+            try:
+                driver.Trainer(driver.parse_args(
+                    NATIVE_TRAIN_ARGV + ["--dataset_root", root,
+                                         "--native_loader", "on",
+                                         "--save_folder",
+                                         os.path.join(tmp, "refused")]))
+                check(False, "--native_loader on trained without a library")
+            except native.NativeUnavailable as e:
+                check(error in str(e), f"--native_loader on raised {e}")
+            log("native: --native_loader on raises with the compiler's "
+                "error")
+        try:
+            import cv2  # noqa: F401
+            has_cv2 = True
+        except ImportError:
+            has_cv2 = False
+        log(f"native: cv2 {'imports' if has_cv2 else 'does not import'} "
+            f"on this host")
+        if not (built or has_cv2):
+            log("native: neither the C++ pipeline nor cv2 can decode the "
+                "tree's JPEGs here; the entry points on files are not run")
+            return totals
+
+        torch.backends.cudnn.deterministic = True
+        counters = reset_launches()
+        first, _ = train_and_resume(torch, train_argv,
+                                    os.path.join(tmp, "train"),
+                                    f"driver VOC --native_loader {mode}")
+        check(first["native_active"] == [built, built]
+              and first["native_fallbacks"] == 0,
+              f"driver VOC: native {first['native_active']}, fallbacks "
+              f"{first['native_fallbacks']}")
+        if has_cv2:
+            full = driver.main(train_argv + [
+                "--augment", "full", "--num_epoch", "1",
+                "--save_folder", os.path.join(tmp, "full")])
+            check_finite_summary(full, "--augment full")
+            log(f"driver VOC --augment full D0@512 bf16 B=32: epoch img/s "
+                f"{full['img_s'][0]:.1f}, loss {full['epoch_loss'][0]:.4f} "
+                f"(the training loader in Python, cv2)")
+        else:
+            try:
+                driver.main(train_argv + ["--augment", "full"])
+                check(False, "--augment full ran without cv2")
+            except RuntimeError as e:
+                check("needs cv2" in str(e), f"--augment full raised {e}")
+            log("native: --augment full raises before the first step, "
+                "naming cv2")
+        torch.cuda.synchronize()
+        torch.backends.cudnn.deterministic = False
+        launches = launch_counts(counters)
+        check(not any(launches.values()),
+              f"kernels launched on the driver's path: {launches}")
+        log(f"driver VOC --native_loader {mode} D0@512 bf16 B=32 "
+            f"({'native' if built else 'Python'} batches): epoch img/s "
+            f"{', '.join(f'{v:.1f}' for v in first['img_s'])}; epoch loss "
+            f"{', '.join(f'{v:.4f}' for v in first['epoch_loss'])}; "
+            f"{card_summary()}")
+
+        cfg_blob = first["checkpoints"][-1]
+        runs = [(b, fused) for fused in (False, True) for b in EVAL_BATCHES]
+        rates = {run: [] for run in runs}
+        for b, fused in runs + runs[::-1]:
+            evaluator, summary, launches, dets = run_eval(
+                torch, ["--dataset", "VOC", "--dataset_root", root,
+                        "--weight", cfg_blob, "--bf16", "--batch_size",
+                        str(b), "--native_loader", mode]
+                + (["--fused_backbone"] if fused else []))
+            check(summary["native_active"] == built
+                  and summary["native_fallbacks"] == 0,
+                  f"eval VOC: native {summary['native_active']}, fallbacks "
+                  f"{summary['native_fallbacks']}")
+            batches = math.ceil(summary["images"] / b)
+            want = {"nms_select": batches, "fuse_topdown": 0,
+                    "fuse_bottomup": 0,
+                    "fused_expand_dw_flat": 15 * batches if fused else 0,
+                    "fused_expand_dw": 0}
+            check(launches == want, f"eval VOC B={b} fused={fused}: "
+                  f"launches {launches}, want {want}")
+            check(len(dets) == batches, f"eval VOC B={b}: {len(dets)}")
+            for det in dets:
+                check_detections(torch, det, b)
+            for name, n in launches.items():
+                totals[name] = totals.get(name, 0) + n
+            rates[(b, fused)].append(summary["img_s"])
+        for (b, fused), ips in rates.items():
+            log(f"eval driver VOC --native_loader {mode} D0@512 bf16 B={b}"
+                f"{' --fused_backbone' if fused else ''}: "
+                f"{', '.join(f'{v:.1f}' for v in ips)} img/s "
+                f"({NATIVE_IMAGES} JPEG files, whole evaluation)")
+
+        argv = ["--dataset", "VOC", "--dataset_root", parity_root,
+                "--weight", cfg_blob, "--batch_size",
+                str(EVAL_PARITY_IMAGES), "--threshold", "0.0",
+                "--native_loader", mode]
+        # The parity tree's ground truth becomes the card's own top
+        # detections, so that the APs held below are not all 0.
+        _, _, first_launches, first_dets = run_eval(torch, argv)
+        annotate_from_detections(
+            parity_root, first_dets[0],
+            IMAGE_SIZE / max(jpeg_dims(open(NATIVE_DEMO, "rb").read())))
+        for name, n in first_launches.items():
+            totals[name] += n
+        _, card, card_launches, card_dets = run_eval(torch, argv)
+        _, cpu, cpu_launches, _ = run_eval(torch, argv + ["--device", "cpu"])
+        check(card_launches["nms_select"] == 1 and not any(
+            cpu_launches.values()), f"f32 eval VOC launches: card "
+            f"{card_launches}, cpu {cpu_launches}")
+        for name, n in card_launches.items():
+            totals[name] += n
+        ap_err = max(abs(card["aps"][c][0] - cpu["aps"][c][0])
+                     for c in cpu["aps"])
+        check(card["detections"] == cpu["detections"] > 0
+              and all(card["aps"][c][1] == cpu["aps"][c][1]
+                      for c in cpu["aps"])
+              and ap_err <= EVAL_AP_TOL
+              and abs(card["mAP"] - cpu["mAP"]) <= EVAL_AP_TOL,
+              f"f32 eval VOC, card against CPU: detections "
+              f"{card['detections']} vs {cpu['detections']}, mAP "
+              f"{card['mAP']} vs {cpu['mAP']}, per-class AP off by up to "
+              f"{ap_err}")
+        check(card["mAP"] > 0, f"f32 eval VOC: mAP {card['mAP']} against "
+              "the card's own detections")
+        log(f"eval VOC f32, card against CPU, {EVAL_PARITY_IMAGES} images "
+            f"at threshold 0 on the same {'native' if built else 'Python'} "
+            f"batches, the ground truth the card's top detections: "
+            f"{card['detections']} detections each; mAP {card['mAP']:.6f} "
+            f"vs {cpu['mAP']:.6f}, class APs within {ap_err:.3g}")
+
+        host_rates(torch, dev, root, built)
+        if profile_dir:
+            from efficientdet_tpu_torch.eval import driver as eval_driver
+            evaluator = eval_driver.Evaluator(eval_driver.parse_args(
+                ["--dataset", "VOC", "--dataset_root", root, "--weight",
+                 cfg_blob, "--bf16", "--batch_size", "32",
+                 "--native_loader", mode]))
+            evaluator.run()
+            profile_steps(torch, f"eval_pass_voc_{mode}", evaluator.run, 1,
+                          profile_dir)
     return totals
 
 
@@ -2164,6 +2590,10 @@ def main() -> int:
     eval_launches = phase_eval(torch, dev, cfg, state,
                                train.pop("overfit_state"))
     log(f"eval phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    native_launches = phase_native(torch, dev,
+                                   args.out if args.profile else None)
+    log(f"native phase {time.perf_counter() - t0:.1f} s")
     times = phase_kernel_times(torch, dev, nms_sets)
     if args.profile:
         phase_profile(torch, dev, cfg, state, args.out)
@@ -2186,6 +2616,13 @@ def main() -> int:
                  "fuse_bottomup": eval_launches["fuse_bottomup"],
                  "mbconv_fused": eval_launches["fused_expand_dw_flat"]
                  + eval_launches["fused_expand_dw"]}
+    # Launches over phase_native's evaluation runs on the VOC tree.
+    native_runs = {"nms_select": native_launches.get("nms_select", 0),
+                   "fuse_topdown": native_launches.get("fuse_topdown", 0),
+                   "fuse_bottomup": native_launches.get("fuse_bottomup", 0),
+                   "mbconv_fused":
+                   native_launches.get("fused_expand_dw_flat", 0)
+                   + native_launches.get("fused_expand_dw", 0)}
     sources = {
         "nms_select": ("cuda", "efficientdet_tpu_torch/csrc/nms_select.cu",
                        "efficientdet_tpu/kernels/nms_kernel.py:100",
@@ -2212,6 +2649,7 @@ def main() -> int:
                  "replaces": replaces, "launches": n,
                  "launches_per_step": per_step[name],
                  "eval_launches": eval_runs[name],
+                 "native_phase_launches": native_runs[name],
                  "parallel_launches": parallel_runs[name], "max_abs_err": err,
                  "ms": t["ms"], "plain_ms": t["plain_ms"],
                  "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -12,10 +12,11 @@ is ``python -m efficientdet_tpu_torch.train`` (``train/driver.py``), with
 and data-parallel training over ``torch.distributed`` (``parallel/``);
 ``python -m efficientdet_tpu_torch.eval`` (``eval/``: VOC mAP, COCO AP)
 and ``python -m efficientdet_tpu_torch.demo`` evaluate and serve them.
-The configuration, the host data pipeline (datasets, transforms, loader)
-and the weight bridge are the port's own copies of the JAX package's
-(``config.py``, ``data/``, ``utils/``): this package imports neither jax
-nor anything of ``efficientdet_tpu``. Modules are built on the CUDA card
+The configuration, the host data pipeline (datasets, transforms, the full
+augmentation recipe, loader, and the C++ JPEG batch pipeline of
+``native/``) and the weight bridge are the port's own copies of the JAX
+package's (``config.py``, ``data/``, ``native/``, ``utils/``): this package
+imports neither jax nor anything of ``efficientdet_tpu``. Modules are built on the CUDA card
 unless a ``device`` is given (``device.py``).
 """
 

@@ -39,7 +39,7 @@ import torch
 from ..config import EFFICIENTDET, DetectorConfig
 from ..data import (CocoDataset, SyntheticDetection, VOCDetection,
                     eval_transforms)
-from ..data.loader import eval_batches, prefetch_iter, refuse_native
+from ..data.loader import EvalBatches, eval_batches, prefetch_iter
 from ..device import default_device
 from ..models import EfficientDet
 from ..train import make_eval_step
@@ -79,11 +79,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--results_json", default=None,
                    help="COCO: write results JSON here")
     p.add_argument("--synthetic_length", type=int, default=16)
-    p.add_argument("--native_loader", default="off",
+    p.add_argument("--native_loader", default="auto",
                    choices=["auto", "on", "off"],
-                   help="C++ decode pipeline for eval batches: not ported "
-                        "yet (ROADMAP A13), so the default is off and auto "
-                        "and on raise")
+                   help="C++ decode pipeline for eval batches "
+                        "(efficientdet_tpu_torch.native, built with g++ and "
+                        "libjpeg at first use): auto = where it builds and "
+                        "the dataset reads JPEG files; on = raise where it "
+                        "cannot")
     p.add_argument("--device", default="cuda",
                    help="torch device to evaluate on, in place of the JAX "
                         "driver's --platform; 'cpu' evaluates on the CPU. "
@@ -100,7 +102,6 @@ class Evaluator:
     evaluates and returns the summary ``main`` returns."""
 
     def __init__(self, args: argparse.Namespace):
-        refuse_native(args.native_loader)
         self.args = args
         self.device = default_device(args.device)
         # The checkpoint's configuration defines the model geometry: read it
@@ -135,6 +136,12 @@ class Evaluator:
             max_detections=args.max_detections)
         self.dataset = dataset
         self.num_classes = num_classes
+        self.input_size = input_size
+        # Decided (and refused, for --native_loader on) before the model
+        # is built.
+        batches = self.batches()
+        self.native_active = batches.native_active
+        print(batches.data_path())
 
         model = EfficientDet(
             self.cfg, dtype=torch.bfloat16 if args.bf16 else torch.float32,
@@ -144,6 +151,13 @@ class Evaluator:
         self.eval_step = make_eval_step(self.model, self.cfg,
                                         fused_backbone=args.fused_backbone)
 
+    def batches(self) -> EvalBatches:
+        """A pass of ``eval_batches`` over the dataset, as ``eval.py``
+        makes them."""
+        return eval_batches(self.dataset, self.args.batch_size,
+                            image_size=self.input_size,
+                            native=self.args.native_loader)
+
     def eval_fn(self, images: np.ndarray):
         """One host batch -> Detections on the device."""
         return self.eval_step(torch.from_numpy(images).to(self.device))
@@ -152,29 +166,35 @@ class Evaluator:
         """Evaluate -> {'mAP', 'aps' {label: (AP, num_annotations)}} (VOC,
         synthetic) or {'stats'} (COCO), with 'detections' (kept over the
         dataset's images, padded rows left out), 'images', 'seconds' (the
-        whole evaluation, data path and metrics included) and 'img_s'."""
+        whole evaluation, data path and metrics included), 'img_s',
+        'native_active' and 'native_fallbacks' (images of native batches
+        made by ``dataset[i]``)."""
         args = self.args
         n = len(self.dataset)
         t0 = time.perf_counter()
+        batches = self.batches()
         if args.dataset in ("VOC", "synthetic"):
             mean_ap, aps, dets = evaluate_model(
                 self.dataset, self.eval_fn, self.num_classes,
                 batch_size=args.batch_size, iou_threshold=args.eval_iou,
                 score_threshold=args.threshold,
                 max_detections=args.max_detections,
-                native=args.native_loader, return_detections=True)
+                input_size=self.input_size, native=args.native_loader,
+                return_detections=True, batches=batches)
             print(f"mAP@{args.eval_iou}: {mean_ap:.4f}")
             summary = {"mAP": mean_ap, "aps": aps,
                        "detections": sum(len(d) for per_image in dets
                                          for d in per_image)}
         else:
-            summary = self._run_coco()
+            summary = self._run_coco(batches)
         seconds = time.perf_counter() - t0
         summary.update(images=n, seconds=seconds,
-                       img_s=n / max(seconds, 1e-9))
+                       img_s=n / max(seconds, 1e-9),
+                       native_active=batches.native_active,
+                       native_fallbacks=batches.native_fallbacks)
         return summary
 
-    def _run_coco(self) -> Dict:
+    def _run_coco(self, batches: EvalBatches) -> Dict:
         """``eval.py``'s COCO loop: accumulate, summarize, and optionally
         write the results JSON -> {'stats', 'detections'}."""
         args, dataset = self.args, self.dataset
@@ -182,9 +202,7 @@ class Evaluator:
                                   max_dets=args.max_detections)
         image_ids, dets_for_json = [], []
         n, kept = len(dataset), 0
-        batches = prefetch_iter(eval_batches(
-            dataset, args.batch_size, args.native_loader))
-        for idx, images, scales in batches:
+        for idx, images, scales in prefetch_iter(batches):
             det = {k: v.cpu().numpy()
                    for k, v in self.eval_fn(images)._asdict().items()}
             for j, i in enumerate(idx):

@@ -15,7 +15,7 @@ detections give bit-equal APs in both packages.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -121,18 +121,20 @@ def evaluate_model(dataset, eval_fn, num_classes: int,
                    score_threshold: float = 0.05,
                    max_detections: int = 100,
                    verbose: bool = True,
-                   native: str = "off",
-                   return_detections: bool = False):
+                   input_size: int = 0,
+                   native: str = "auto",
+                   return_detections: bool = False,
+                   batches: Optional[Iterable] = None):
     """Full VOC evaluation loop, batched on device.
 
     `eval_fn(images (B, S, S, 3) float32 numpy) -> Detections` (e.g. the
     eval step of ``make_eval_step`` after a copy to the model's device).
     `dataset[i]` must yield {'img','annot','scale'}; `dataset.load_annotations`
     returns original-resolution GT. Batches come from
-    ``data/loader.py::eval_batches`` (``native`` other than 'off' raises
-    there: the C++ pipeline is not ported); a prefetch thread makes them
-    while the device computes. The JAX package's ``input_size`` only
-    selects its C++ pipeline and has no counterpart here.
+    ``data/loader.py::eval_batches(dataset, batch_size, image_size=
+    input_size, native=native)`` unless given as ``batches``: pass
+    ``input_size`` to enable the native C++ decode pipeline. A prefetch
+    thread makes them while the device computes.
     Returns (mAP, {label: (AP, num_annotations)}), and with
     ``return_detections`` also each image's kept detections per class
     (``collect_detections_per_class``).
@@ -142,9 +144,10 @@ def evaluate_model(dataset, eval_fn, num_classes: int,
     n = len(dataset)
     all_detections: List[Optional[list]] = [None] * n
     all_annotations: List[list] = [[] for _ in range(n)]
-    batches = prefetch_iter(
-        eval_batches(dataset, batch_size, native))
-    for idx, images, scales in batches:
+    if batches is None:
+        batches = eval_batches(dataset, batch_size, image_size=input_size,
+                               native=native)
+    for idx, images, scales in prefetch_iter(batches):
         det = eval_fn(images)
         det = {k: v.cpu().numpy() for k, v in det._asdict().items()}
         for j, i in enumerate(idx):

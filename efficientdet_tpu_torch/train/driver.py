@@ -30,6 +30,11 @@ losses averaged over the ranks, ``train``-mode BatchNorm over the global
 batch), and rank 0 alone prints, logs and saves; the others wait for the
 save before going on.
 
+Batches of a VOC or COCO set come from the C++ JPEG pipeline
+(``efficientdet_tpu_torch.native``) under ``--native_loader auto`` where it
+builds, or ``on``; the path is printed at start. ``--augment full`` trains
+on the albumentations recipe (``data/augmentation.py``) in Python.
+
 A resumed run continues the one it resumes: the loader shuffles by the
 epoch number and the training transform's random state comes back from
 the checkpoint, so the first step after a resume is the step the saved run
@@ -49,7 +54,7 @@ import torch
 
 from ..config import EFFICIENTDET, DetectorConfig
 from ..data import (CocoDataset, DataLoader, SyntheticDetection, VOCDetection,
-                    eval_transforms, train_transforms)
+                    eval_transforms, get_augmentation, train_transforms)
 from ..models import EfficientDet
 from ..parallel import (Mesh, create_mesh, launcher_env, mean_across_ranks,
                         put_batch, put_replicated, shard_train_step)
@@ -130,11 +135,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "environment (torchrun, or RANK, WORLD_SIZE, "
                         "MASTER_ADDR, MASTER_PORT set), at any WORLD_SIZE "
                         "including 1; raises without one")
-    p.add_argument("--native_loader", default="off",
+    p.add_argument("--native_loader", default="auto",
                    choices=["auto", "on", "off"],
-                   help="C++ decode/augment pipeline: not ported yet "
-                        "(ROADMAP A13), so the default is off and auto and "
-                        "on raise")
+                   help="C++ decode/augment pipeline "
+                        "(efficientdet_tpu_torch.native, built with g++ and "
+                        "libjpeg at first use); auto = use when buildable "
+                        "and the dataset reads JPEG files, on = raise "
+                        "otherwise. The training loader stays in Python "
+                        "under --augment full")
     p.add_argument("--device_normalize", action="store_true",
                    help="ship raw uint8 pixels to the device and normalize "
                         "inside the step (train_lib.maybe_normalize_images): "
@@ -146,8 +154,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "that decodes files (VOC, COCO)")
     p.add_argument("--augment", default="basic", choices=["basic", "full"],
                    help="basic = Normalizer/Augmenter/Resizer; full = the "
-                        "albumentations recipe, not ported yet (ROADMAP "
-                        "A13): it raises")
+                        "albumentations recipe (data/augmentation.py: "
+                        "crops, flips, transpose, colour, CLAHE; needs "
+                        "cv2)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--synthetic_length", type=int, default=64)
     p.add_argument("--log_every", type=int, default=50)
@@ -175,15 +184,34 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
+def check_full_augmentation(args: argparse.Namespace) -> None:
+    """``--augment full`` raises here, before anything is built, with
+    ``--device_normalize`` (``train.py``'s assert) or on a host where cv2
+    does not import: its operators resize, convert colours and equalize
+    with cv2, in the loader's thread."""
+    if getattr(args, "device_normalize", False):
+        raise ValueError("--device_normalize requires the basic transform "
+                         "path (the full albumentations recipe normalizes "
+                         "internally)")
+    try:
+        import cv2  # noqa: F401
+    except ImportError as e:
+        raise RuntimeError(
+            "--augment full needs cv2 (its crops, resizes, colour "
+            "conversions and CLAHE run in cv2), which does not import on "
+            "this host; use --augment basic") from e
+
+
 def build_dataset(args: argparse.Namespace, train: bool, input_size: int):
     """The training or validation dataset that ``args`` names, with the
     JAX driver's transforms and seeds."""
     dev_norm = getattr(args, "device_normalize", False)
     if train and args.augment == "full":
-        raise NotImplementedError(
-            "--augment full: the albumentations recipe is not ported yet "
-            "(ROADMAP A13); use --augment basic")
-    if train:
+        # the reference's albumentations recipe (datasets/augmentation.py:8-50)
+        check_full_augmentation(args)
+        tf = get_augmentation("train", width=input_size, height=input_size,
+                              seed=args.seed)
+    elif train:
         tf = train_transforms(input_size, seed=args.seed,
                               device_normalize=dev_norm)
     else:
@@ -315,8 +343,8 @@ class Trainer:
                      f"{args.pretrained_backbone}")
         self.save_dir = os.path.join(args.save_folder, args.dataset,
                                      args.network)
-        # The training transform's random state (flips), saved and restored
-        # with the checkpoints.
+        # The training transform's random state (flips; every draw of the
+        # full recipe), saved and restored with the checkpoints.
         self.rng = getattr(self.train_ds.transform, "rng", None)
 
         self.start_epoch = 0
@@ -334,10 +362,14 @@ class Trainer:
             self.train_ds, rank_batch, shuffle=True,
             max_boxes=args.max_boxes, seed=args.seed,
             shard_index=mesh.rank, num_shards=world,
-            native=args.native_loader, image_size=input_size, flip_prob=0.5,
+            # The C++ pipeline makes the basic transform only: the full
+            # recipe runs through the dataset's Python path.
+            native="off" if args.augment == "full" else args.native_loader,
+            image_size=input_size, flip_prob=0.5,
             cache="ram" if args.cache_images else "off",
             uint8_images=args.device_normalize)
         self.loader.set_epoch(self.start_epoch)
+        self.log(f"training {self.loader.data_path()}")
         self.scheduler = (PlateauScheduler(factor=0.1,
                                            patience=args.lr_patience)
                           if args.lr_schedule == "plateau" else None)
@@ -353,6 +385,8 @@ class Trainer:
                 uint8_images=args.device_normalize)
         except (FileNotFoundError, OSError):
             self.val_loader = None  # no val split on disk
+        if self.val_loader is not None:
+            self.log(f"validation {self.val_loader.data_path()}")
         self.logger = MetricLogger(args.log_dir if mesh.is_chief else None,
                                    tensorboard=args.tensorboard)
         self.global_step = 0
@@ -437,7 +471,11 @@ class Trainer:
         ``eval_every``, step the plateau schedule, save every
         ``save_every``; ``on_epoch_end(epoch, trainer)`` runs after each.
         Returns {'epochs', 'epoch_loss', 'img_s', 'first_step',
-        'val_loss' (None where not validated), 'checkpoints'}."""
+        'val_loss' (None where not validated), 'checkpoints',
+        'native_active' ([the training loader's, the validation
+        loader's where there is one]),
+        'native_fallbacks' (images of native batches made by
+        ``dataset[i]``, both loaders, this rank)}."""
         args = self.args
         summary = {"epochs": [], "epoch_loss": [], "img_s": [],
                    "first_step": [], "val_loss": [], "checkpoints": []}
@@ -469,6 +507,11 @@ class Trainer:
             if on_epoch_end is not None:
                 on_epoch_end(epoch, self)
         self.logger.close()
+        loaders = [self.loader] + ([self.val_loader]
+                                   if self.val_loader is not None else [])
+        summary["native_active"] = [ld.native_active for ld in loaders]
+        summary["native_fallbacks"] = sum(ld.native_fallbacks
+                                          for ld in loaders)
         return summary
 
 

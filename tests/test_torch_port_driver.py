@@ -16,8 +16,12 @@ Checked here:
   port, whose eval step then matches JAX's;
 - ``build_dataset`` and the loader give the batches of the JAX driver's
   ``build_dataset`` (``train.py``) with the JAX ``DataLoader``;
+- with ``--native_loader on`` (the C++ batch pipeline) and with
+  ``--augment full`` (the albumentations recipe), the driver's loaders give
+  the batches of ``train.py``'s, and its runs train and resume exactly;
 - ``load_pretrained_backbone`` on a local blob equals JAX's;
-- the flags the port does not support yet raise.
+- the flags the port does not support, and the settings that cannot run,
+  raise before anything is written.
 
 JAX's variable templates come from ``jax.eval_shape``, so only the eval
 step compiles; JAX runs at ``highest`` matmul precision.
@@ -27,6 +31,7 @@ import argparse
 import importlib.util
 import json
 import os
+import sys
 
 import cv2
 import numpy as np
@@ -51,6 +56,8 @@ from efficientdet_tpu_torch.utils import checkpoint as ckpt
 from efficientdet_tpu_torch.utils import pretrained, torch_bridge
 from efficientdet_tpu_torch.utils.weights import to_jax_variables
 from chip_smoke import check_snapshots_equal, train_state_snapshot
+from test_torch_port_native import (jax_native, jax_native_private,  # noqa: F401
+                                    port_native)
 from test_torch_port_slice import CFG, ROOT, _random_variables
 
 SIZE = 128
@@ -380,6 +387,91 @@ def test_build_dataset_and_loader_as_jax_driver(case, tmp_path):
                 np.testing.assert_array_equal(g[key], w[key], err_msg=key)
 
 
+# ------------------------------------ C++ batch pipeline, full augmentation
+NATIVE_SIZE = 128
+
+
+def _voc_argv(root, save, *extra):
+    return ["--dataset", "VOC", "--dataset_root", str(root), "--device", "cpu",
+            "--input_size", str(NATIVE_SIZE), "--batch_size", "2",
+            "--num_epoch", "2", "--eval_every", "1", "--seed", "5",
+            "--log_every", "1", "--save_folder", str(save), *extra]
+
+
+@pytest.mark.parametrize("augment", ["basic", "full"])
+def test_driver_loaders_as_train_py(augment, jax_native, tmp_path):
+    """``--native_loader on``: the driver's training and validation loaders
+    give the batches (two epochs) of the loaders ``train.py`` builds from
+    the same flags (``train.py:273-299``: its ``build_dataset``, and the
+    JAX ``DataLoader`` with the C++ pipeline, off for the training loader
+    under ``--augment full``)."""
+    root = _voc_tree(tmp_path / "voc")
+    trainer = driver.Trainer(driver.parse_args(_voc_argv(
+        root, tmp_path / "save", "--native_loader", "on", "--augment",
+        augment)))
+    args, jax_driver = trainer.args, _jax_driver()
+    want = jax_data.DataLoader(
+        jax_driver.build_dataset(args, True, NATIVE_SIZE), 2, shuffle=True,
+        max_boxes=args.max_boxes, seed=args.seed,
+        native="off" if augment == "full" else "on", image_size=NATIVE_SIZE,
+        flip_prob=0.5)
+    want_val = jax_data.DataLoader(
+        jax_driver.build_dataset(args, False, NATIVE_SIZE), 2, shuffle=False,
+        max_boxes=args.max_boxes, drop_last=True, native="on",
+        image_size=NATIVE_SIZE)
+    assert trainer.loader.native_active == (augment == "basic") == want._native
+    assert trainer.val_loader.native_active and want_val._native
+    for got_loader, want_loader, epochs in ((trainer.loader, want, 2),
+                                            (trainer.val_loader, want_val, 1)):
+        for _ in range(epochs):
+            got, ref = list(got_loader), list(want_loader)
+            assert len(got) == len(ref) > 0
+            for g, w in zip(got, ref):
+                for key in w:
+                    assert g[key].dtype == w[key].dtype
+                    np.testing.assert_array_equal(g[key], w[key],
+                                                  err_msg=key)
+    assert trainer.loader.native_fallbacks == 0
+
+
+@pytest.mark.parametrize("augment", ["basic", "full"])
+def test_driver_trains_and_resumes_on_files(augment, port_native, tmp_path,
+                                            capsys):
+    """Two epochs on a VOC tree with the C++ pipeline on (training loader
+    in Python under ``--augment full``): finite losses, the data path
+    printed, no fallback; a run resumed from the first checkpoint saves the
+    first run's last checkpoint, bit for bit (the full recipe's random
+    state comes back from the blob)."""
+    root = _voc_tree(tmp_path / "voc")
+    flags = ["--native_loader", "on", "--augment", augment]
+    first = driver.main(_voc_argv(root, tmp_path / "a", *flags))
+    out = capsys.readouterr().out
+    assert first["native_active"] == [augment == "basic", True]
+    assert first["native_fallbacks"] == 0
+    assert all(np.isfinite(first["epoch_loss"] + first["val_loss"]))
+    assert ("training data path: native C++ pipeline" in out) == (
+        augment == "basic")
+    assert "validation data path: native C++ pipeline" in out
+    resumed = driver.main(_voc_argv(root, tmp_path / "b", *flags, "--resume",
+                                    first["checkpoints"][0]))
+    assert resumed["epochs"] == [1]
+    want = torch.load(first["checkpoints"][1], weights_only=False)
+    got = torch.load(resumed["checkpoints"][0], weights_only=False)
+    assert got["state_dict"].keys() == want["state_dict"].keys()
+    for key, value in want["state_dict"].items():
+        assert torch.equal(got["state_dict"][key], value), key
+
+
+def test_augment_full_without_cv2_raises_first(tmp_path, monkeypatch):
+    """On a host where cv2 does not import, ``--augment full`` raises before
+    anything is built, naming cv2."""
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    root = _voc_tree(tmp_path / "voc")
+    with pytest.raises(RuntimeError, match="--augment full needs cv2"):
+        driver.main(_voc_argv(root, tmp_path / "save", "--augment", "full"))
+    assert not (tmp_path / "save").exists()
+
+
 # ---------------------------------------------------- pretrained backbone
 @pytest.mark.parametrize("wrapped", [False, True])
 def test_pretrained_backbone_as_jax(tmp_path, wrapped):
@@ -439,9 +531,13 @@ REFUSED = {
     "num_devices": (["--num_devices", "3"], ValueError,
                     "global batch 2 must divide over 3"),
     "spatial_shards": (["--spatial_shards", "2"], NotImplementedError, "A17"),
-    "native_auto": (["--native_loader", "auto"], NotImplementedError, "A13"),
-    "native_on": (["--native_loader", "on"], NotImplementedError, "A13"),
-    "augment_full": (["--augment", "full"], NotImplementedError, "A13"),
+    "native_on_unavailable": (["--native_loader", "on", "--dataset", "VOC"],
+                              RuntimeError, "EDT_DISABLE_NATIVE"),
+    "native_on_synthetic": (["--native_loader", "on"], ValueError,
+                            "reads no image files"),
+    "augment_full_device_normalize": (
+        ["--augment", "full", "--device_normalize"], ValueError,
+        "--device_normalize requires the basic transform path"),
     "bn_sync": (["--bn_mode", "sync"], NotImplementedError,
                 "unbound axis name"),
     "card_without_one": (["--device", "cuda"], RuntimeError, "device='cpu'"),
@@ -449,12 +545,18 @@ REFUSED = {
 
 
 @pytest.mark.parametrize("name", list(REFUSED))
-def test_refused_flags_raise(name, tmp_path, monkeypatch):
+def test_refused_flags_raise(name, tmp_path, tmp_path_factory, monkeypatch):
     extra, error, match = REFUSED[name]
     if name == "card_without_one" and torch.cuda.is_available():
         pytest.skip("this host has a card")
     for key in ("RANK", "WORLD_SIZE"):  # no launcher's environment
         monkeypatch.delenv(key, raising=False)
+    if name == "native_on_unavailable":
+        from efficientdet_tpu_torch import native
+        monkeypatch.setattr(native, "_result", None)
+        monkeypatch.setenv("EDT_DISABLE_NATIVE", "1")
+        extra = extra + ["--dataset_root", str(_voc_tree(
+            tmp_path_factory.mktemp("voc")))]
     argv = ARGV + ["--num_epoch", "1", "--save_folder", str(tmp_path)] + extra
     with pytest.raises(error, match=match):
         driver.main(argv)
@@ -478,8 +580,8 @@ FLAG_CASES = {
 def test_flags_parse_as_jax_driver(case, monkeypatch):
     """``train.py``'s flags, defaults and ``--config`` overrides, parsed
     alike; the port replaces ``--platform`` by ``--device``, defaults
-    ``--native_loader`` to off (the C++ pipeline is not ported) and
-    ``--dataset_root`` to one under the working directory."""
+    ``--dataset_root`` to one under the working directory, and
+    ``--native_loader`` is ``auto`` in both."""
     argv = FLAG_CASES[case]
     monkeypatch.setattr("sys.argv", ["train.py"] + argv)
     want = vars(_jax_driver().parse_args())
@@ -487,6 +589,5 @@ def test_flags_parse_as_jax_driver(case, monkeypatch):
     assert set(got) - set(want) == {"device"}
     assert set(want) - set(got) == {"platform"}
     differ = {k for k in got if k in want and got[k] != want[k]}
-    assert differ == {"native_loader"} | (
-        set() if "--config" in argv else {"dataset_root"})
-    assert (got["native_loader"], want["native_loader"]) == ("off", "auto")
+    assert differ == (set() if "--config" in argv else {"dataset_root"})
+    assert got["native_loader"] == want["native_loader"] == "auto"

@@ -5,7 +5,8 @@
   package's on seeded detections, and the JAX package's own unit cases
   (``tests/test_eval.py``) hold for both.
 - ``eval_batches`` gives the JAX package's batches with ``native='off'``,
-  the padded last batch included, and refuses the C++ pipeline.
+  the padded last batch included, and ``native='on'`` raises where the
+  C++ pipeline cannot serve.
 - ``python -m efficientdet_tpu_torch.eval --device cpu`` (``driver.main``)
   against ``eval.py``'s path on the same ``.pth``: a blob the port's
   ``save_checkpoint`` writes from a seeded EfficientDet-D0 at 128 px with
@@ -14,7 +15,9 @@
   JAX side is ``eval.py``'s construction with one jitted
   ``make_eval_step``, shared by every case; at ``--threshold 0.0`` the mAP
   and per-class APs (synthetic set, and a VOC tree the test writes) and the
-  COCO stats and results JSON (a COCO tree) agree.
+  COCO stats and results JSON (a COCO tree) agree, the file trees read by
+  the C++ batch pipeline (``--native_loader auto``, ``eval.py``'s default,
+  and ``on``) in both packages, each building its own library here.
 - ``draw_detections`` and ``vis_bbox`` draw what the JAX package's draw.
 
 JAX runs at ``highest`` matmul precision.
@@ -53,6 +56,8 @@ from efficientdet_tpu_torch.ops.nms import Detections
 from efficientdet_tpu_torch.utils import checkpoint as ckpt
 from efficientdet_tpu_torch.utils.seeded import seeded_detector
 from efficientdet_tpu_torch.utils import visualization as port_vis
+from test_torch_port_native import (jax_native, jax_native_private,  # noqa: F401
+                                    port_native)
 from test_torch_port_slice import ROOT
 
 SIZE = 128
@@ -418,11 +423,29 @@ def test_eval_batches_match_jax(name, trees):
     assert not got[-1][1][1:].any() and (got[-1][2][1:] == 1).all()
 
 
-@pytest.mark.parametrize("native", ["auto", "on"])
-def test_eval_batches_refuse_native(native):
-    ds, _ = _datasets("synthetic", None)
-    with pytest.raises(NotImplementedError, match="A13"):
-        next(port_loader.eval_batches(ds, BATCH, native=native))
+@pytest.mark.parametrize("case", ["no_files", "unavailable"])
+def test_eval_batches_native_on_refuses(case, trees, monkeypatch):
+    """``native='on'`` raises before the first batch where the C++
+    pipeline cannot serve: a dataset of no image files (the synthetic set),
+    or a library that is not there (disabled here); 'auto' then takes
+    ``dataset[i]``'s path, as the JAX package's does."""
+    from efficientdet_tpu_torch import native
+    name = "synthetic" if case == "no_files" else "VOC"
+    if case == "unavailable":
+        monkeypatch.setattr(native, "_result", None)
+        monkeypatch.setenv("EDT_DISABLE_NATIVE", "1")
+    port_ds, jax_ds = _datasets(name, trees[name])
+    error, match = ((ValueError, "reads no image files") if case == "no_files"
+                    else (native.NativeUnavailable, "EDT_DISABLE_NATIVE"))
+    with pytest.raises(error, match=match):
+        port_loader.eval_batches(port_ds, BATCH, SIZE, "on")
+    got = port_loader.eval_batches(port_ds, BATCH, SIZE, "auto")
+    assert not got.native_active
+    want = jax_loader.eval_batches(jax_ds, BATCH, SIZE, native="off")
+    for (gi, gx, gs), (wi, wx, ws) in zip(got, want):
+        assert gi == wi
+        np.testing.assert_array_equal(gx, wx)
+        np.testing.assert_array_equal(gs, ws)
 
 
 # ------------------------------------------- the entry point against JAX
@@ -461,16 +484,20 @@ def _port_argv(name, root, path, *extra):
 
 
 @pytest.mark.parametrize("name", ["synthetic", "VOC"])
-def test_eval_entry_point_matches_jax(name, trees, blob, capsys):
+def test_eval_entry_point_matches_jax(name, trees, blob, jax_native_private,
+                                      capsys):
     """mAP and per-class APs of ``eval.py``'s VOC path on the same blob,
-    both > 0; the printed lines of ``evaluate_model`` and the mAP line."""
+    both > 0, both with ``eval.py``'s default ``--native_loader auto``; the
+    printed lines of ``evaluate_model`` and the mAP line."""
     path, jax_fn = blob
     got = driver.main(_port_argv(name, trees[name], path))
     out = capsys.readouterr().out
     _, jax_ds = _datasets(name, trees[name])
     want_map, want_aps = jax_eval.evaluate_model(
         jax_ds, jax_fn, NUM_CLASSES, batch_size=BATCH, score_threshold=0.0,
-        input_size=SIZE, native="off")
+        input_size=SIZE, native="auto")
+    assert got["native_active"] == (name == "VOC"
+                                    and jax_native_private.available())
     assert got["mAP"] > 0 and want_map > 0
     assert got["mAP"] == pytest.approx(want_map, rel=0, abs=AP_TOL)
     assert got["aps"].keys() == want_aps.keys()
@@ -483,13 +510,14 @@ def test_eval_entry_point_matches_jax(name, trees, blob, capsys):
     assert f"{_datasets(name, trees[name])[0].label_to_name(0)}: " in out
 
 
-def _jax_coco(dataset, eval_fn, results_json):
+def _jax_coco(dataset, eval_fn, results_json, native="auto"):
     """``eval.py``'s COCO loop (eval.py:131-165) with the JAX package's
-    evaluator, batches and results writer."""
+    evaluator, batches (its ``--native_loader`` default ``auto``) and
+    results writer."""
     evaluator = jax_coco.CocoEvaluator(NUM_CLASSES, max_dets=100)
     image_ids, dets_for_json = [], []
     for idx, images, scales in jax_loader.eval_batches(dataset, BATCH, SIZE,
-                                                       native="off"):
+                                                       native=native):
         det = eval_fn(images)
         for j, i in enumerate(idx):
             valid = np.asarray(det.valid[j])
@@ -508,7 +536,8 @@ def _jax_coco(dataset, eval_fn, results_json):
     return evaluator.summarize(verbose=False)
 
 
-def test_eval_entry_point_coco_matches_jax(trees, blob, tmp_path, capsys):
+def test_eval_entry_point_coco_matches_jax(trees, blob, jax_native_private,
+                                           tmp_path, capsys):
     path, jax_fn = blob
     results = tmp_path / "port.json"
     got = driver.main(_port_argv("COCO", trees["COCO"], path,
@@ -533,6 +562,36 @@ def test_eval_entry_point_coco_matches_jax(trees, blob, tmp_path, capsys):
                                    atol=2 * BOX_TOL)
 
 
+@pytest.mark.parametrize("name", ["VOC", "COCO"])
+def test_eval_entry_point_native_on_matches_jax(name, trees, blob, jax_native,
+                                                tmp_path, capsys):
+    """``--native_loader on``: the data path printed, every batch from the
+    C++ pipeline with no fallback, and the APs (VOC) or COCO stats of
+    ``eval.py``'s path with its own pipeline on the same blob."""
+    path, jax_fn = blob
+    got = driver.main(_port_argv(name, trees[name], path,
+                                 "--native_loader", "on"))
+    out = capsys.readouterr().out
+    assert "data path: native C++ pipeline" in out
+    assert got["native_active"] and got["native_fallbacks"] == 0
+    _, jax_ds = _datasets(name, trees[name])
+    if name == "COCO":
+        want = _jax_coco(jax_ds, jax_fn, str(tmp_path / "jax.json"), "on")
+        for key, value in want.items():
+            assert got["stats"][key] == pytest.approx(value, rel=0,
+                                                      abs=AP_TOL)
+        assert got["stats"]["AP50"] > 0
+        return
+    want_map, want_aps = jax_eval.evaluate_model(
+        jax_ds, jax_fn, NUM_CLASSES, batch_size=BATCH, score_threshold=0.0,
+        input_size=SIZE, native="on")
+    assert got["mAP"] > 0
+    assert got["mAP"] == pytest.approx(want_map, rel=0, abs=AP_TOL)
+    for label, (ap, n) in want_aps.items():
+        assert got["aps"][label][1] == n
+        assert got["aps"][label][0] == pytest.approx(ap, rel=0, abs=AP_TOL)
+
+
 # ------------------------------------------------------- flags, refusals
 def _jax_eval_driver():
     spec = importlib.util.spec_from_file_location(
@@ -554,9 +613,8 @@ FLAG_CASES = {
 @pytest.mark.parametrize("case", list(FLAG_CASES))
 def test_flags_parse_as_eval_py(case, monkeypatch):
     """``eval.py``'s flags and defaults; the port replaces ``--platform``
-    by ``--device``, defaults ``--native_loader`` to off (the C++ pipeline
-    is not ported) and ``--dataset_root`` to one under the working
-    directory."""
+    by ``--device`` and defaults ``--dataset_root`` to one under the
+    working directory; ``--native_loader`` is ``auto`` in both."""
     argv = FLAG_CASES[case]
     monkeypatch.setattr("sys.argv", ["eval.py"] + argv)
     want = vars(_jax_eval_driver().parse_args())
@@ -564,27 +622,37 @@ def test_flags_parse_as_eval_py(case, monkeypatch):
     assert set(got) - set(want) == {"device"}
     assert set(want) - set(got) == {"platform"}
     differ = {k for k in got if k in want and got[k] != want[k]}
-    assert differ == {"native_loader", "dataset_root"}
-    assert (got["native_loader"], want["native_loader"]) == ("off", "auto")
+    assert differ == {"dataset_root"}
+    assert got["native_loader"] == want["native_loader"] == "auto"
     assert got["device"] == "cuda"
 
 
 REFUSED = {
-    "native_auto": (["--native_loader", "auto"], NotImplementedError,
-                    "A13"),
-    "native_on": (["--native_loader", "on"], NotImplementedError, "A13"),
+    "native_on_unavailable": (["--native_loader", "on", "--dataset", "VOC"],
+                              RuntimeError, "EDT_DISABLE_NATIVE"),
+    "native_on_synthetic": (["--native_loader", "on"], ValueError,
+                            "reads no image files"),
     "card_without_one": (["--device", "cuda"], RuntimeError, "device='cpu'"),
     "orbax_directory": ([], ValueError, "orbax"),
 }
 
 
 @pytest.mark.parametrize("name", list(REFUSED))
-def test_eval_refuses(name, tmp_path):
+def test_eval_refuses(name, tmp_path, trees, blob, monkeypatch):
+    """Each refusal raises before the model is built (the native ones once
+    the checkpoint's configuration gives the input size)."""
     extra, error, match = REFUSED[name]
     if name == "card_without_one" and torch.cuda.is_available():
         pytest.skip("this host has a card")
+    if name == "native_on_unavailable":
+        from efficientdet_tpu_torch import native
+        monkeypatch.setattr(native, "_result", None)
+        monkeypatch.setenv("EDT_DISABLE_NATIVE", "1")
+        extra = extra + ["--dataset_root", str(trees["VOC"])]
+    monkeypatch.setattr(driver, "EfficientDet", None)   # never reached
     (tmp_path / "detector_config.json").write_text("{}")
     weight = (str(tmp_path) if name == "orbax_directory"
+              else blob[0] if name.startswith("native")
               else str(tmp_path / "missing.pth"))
     argv = ["--dataset", "synthetic", "--weight", weight, "--device", "cpu",
             *extra]

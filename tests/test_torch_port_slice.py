@@ -273,6 +273,7 @@ def test_whole_slice_matches(port, jax_serving):
 
 _NO_JAX = """
 import sys
+VOC_ROOT = sys.argv[1]   # a VOC tree written by the test, or "-"
 sys.modules["jax"] = None
 sys.modules["flax"] = None
 sys.modules["efficientdet_tpu"] = None
@@ -345,11 +346,36 @@ with tempfile.TemporaryDirectory() as out:
     boxes, labels, scores = detect.process(
         np.random.RandomState(0).rand(128, 128, 3).astype(np.float32))
     assert boxes.shape == (100, 4) and len(labels) == len(scores) == 100
+
+    voc = VOC_ROOT
+    if voc != "-":
+        from efficientdet_tpu_torch.eval import driver as eval_driver
+        from efficientdet_tpu_torch.train import driver as train_driver
+        common = ["--dataset", "VOC", "--dataset_root", voc, "--device", "cpu",
+                  "--input_size", "128", "--batch_size", "2"]
+        summary = train_driver.main(common + [
+            "--num_epoch", "1", "--eval_every", "1", "--native_loader", "on",
+            "--save_folder", os.path.join(out, "voc")])
+        assert summary["native_active"] == [True, True], summary
+        assert summary["native_fallbacks"] == 0
+        blob = summary["checkpoints"][0]
+        result = eval_driver.main(common + ["--weight", blob, "--threshold",
+                                            "0.0", "--native_loader", "on"])
+        assert result["native_active"] and result["native_fallbacks"] == 0
+        assert result["detections"] == 100 * result["images"] > 0
+        try:
+            train_driver.main(common + ["--augment", "full", "--save_folder",
+                                        os.path.join(out, "full")])
+            raise AssertionError("--augment full ran without cv2")
+        except RuntimeError as e:
+            assert "needs cv2" in str(e), e
+        assert not os.path.exists(os.path.join(out, "full"))
+        print("NO_JAX_VOC_OK")
 print("NO_JAX_OK")
 """
 
 
-def test_port_runs_with_jax_blocked():
+def test_port_runs_with_jax_blocked(tmp_path):
     """The port imports neither jax, flax nor the JAX package: with all
     three blocked, and cv2 and matplotlib too, it builds and runs the CPU
     slice, with the fusion kernels and with the fused MBConv backbone,
@@ -359,12 +385,23 @@ def test_port_runs_with_jax_blocked():
     group of a launcher's environment (the same checkpoint, bit for bit),
     ``python -m efficientdet_tpu_torch.eval`` evaluates
     that checkpoint, and the demo's ``Detect.process`` serves an image at
-    the model's size from it."""
+    the model's size from it. Where libjpeg is present, both entry points
+    then read a VOC tree of JPEGs (written here, before the process
+    starts) with ``--native_loader on``, as on a host without cv2, where
+    the C++ pipeline is the one way to decode them; and ``--augment full``
+    raises there, naming cv2, before it writes anything."""
     # One intra-op thread: beside the other test workers, a process of one
     # thread per core spins in its thread barriers and slows many times.
-    proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT,
-                          capture_output=True, text=True, timeout=120,
+    from efficientdet_tpu_torch import native
+    from test_torch_port_native import write_voc
+    voc = "-"
+    if native.libjpeg_version() is not None:
+        voc = str(write_voc(tmp_path, {("2007", "trainval"): 2,
+                                       ("2007", "test"): 2}))
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX, voc], cwd=ROOT,
+                          capture_output=True, text=True, timeout=150,
                           env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NO_JAX_OK" in proc.stdout
     assert "mAP@0.5: " in proc.stdout and "avg mAP: " in proc.stdout
+    assert ("NO_JAX_VOC_OK" in proc.stdout) == (voc != "-")

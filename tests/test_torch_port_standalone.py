@@ -125,10 +125,25 @@ def test_data_loader_as_jax(shuffle, drop_last, shard):
 
 
 @pytest.mark.parametrize("native", ["auto", "on"])
-def test_data_loader_refuses_native_pipeline(native):
-    port, _ = _datasets()
-    with pytest.raises(NotImplementedError, match="A13"):
-        port_data.DataLoader(port, batch_size=2, native=native)
+def test_data_loader_native_on_a_dataset_of_no_files(native):
+    """A dataset that reads no image files (no ``image_path``): 'auto' keeps
+    the Python path and gives the JAX loader's batches; 'on' raises in both
+    packages."""
+    port, ref = _datasets()
+    kw = dict(batch_size=2, image_size=64, flip_prob=0.5, seed=3)
+    if native == "on":
+        with pytest.raises(ValueError, match="reads no image files"):
+            port_data.DataLoader(port, native=native, **kw)
+        with pytest.raises(AssertionError):
+            jax_data.DataLoader(ref, native=native, **kw)
+        return
+    got_loader = port_data.DataLoader(port, native=native, **kw)
+    want_loader = jax_data.DataLoader(ref, native=native, **kw)
+    assert not got_loader.native_active and not want_loader._native
+    for _ in range(2):
+        for g, w in zip(list(got_loader), list(want_loader)):
+            for key in w:
+                np.testing.assert_array_equal(g[key], w[key], err_msg=key)
 
 
 def _raw_samples(dtype):
