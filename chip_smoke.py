@@ -15,7 +15,12 @@ with and without the fused backbone, the card's f32 APs against the CPU's,
 and ``efficientdet_tpu_torch.demo.Detect``), builds the C++ JPEG batch
 pipeline (``efficientdet_tpu_torch.native``, g++ and libjpeg; where the
 host has no libjpeg it says so and checks the refusals) and drives both
-entry points on a VOC tree of JPEG files (``phase_native``), and times
+entry points on a VOC tree of JPEG files (``phase_native``), drives
+EfficientDet-D1..D7 at their published sizes (``phase_variants``: D7 at
+1636 px serving at batch 1 and 4 on the plain and fusion paths, card
+against CPU, the probability-input NMS tail, the train step at batch 2;
+D1..D6 serving at batch 1 with and without the fused backbone; each
+kernel against its plain version at those shapes), and times
 the steps and the kernels: each kernel beside its plain version and its
 bound (the larger of its bytes over the H100's 3.35 TB/s and its operations
 over the peak rate of their type), the fused MBConv kernel also per block
@@ -376,24 +381,31 @@ def phase_fusion(torch, dev):
                     rand(b, s, dtype), w3))
                   for s in D0_BOTTOMUP]
         for name, s, kernel, plain, args in cases:
-            got = kernel(*args)
-            torch.cuda.synchronize()
-            want = plain(*args)
-            check(got.dtype == dtype and got.is_contiguous(memory_format=cl),
-                  f"{name} output dtype/layout")
-            diff = (got.float() - want.float()).abs()
-            if dtype == torch.float32:
-                check(diff.max().item() <= 1e-6, f"{name} f32 at B={b} "
-                      f"side {s}: {diff.max().item()}")
-                err[name] = max(err[name], diff.max().item())
-            else:
-                ulps = (diff / bf16_ulp(want)).max().item()
-                check(ulps <= 1.0, f"{name} bf16 at B={b} side {s}: "
-                      f"{ulps} ulp")
-                log(f"{name} bf16 B={b} side {s}: max {ulps:.0f} ulp")
+            err[name] = max(err[name], check_fusion_node(
+                torch, kernel, plain, args, f"{name} B={b} side {s}"))
         log(f"fusion kernels match plain at B={b} in {dtype}")
 
     return err
+
+
+def check_fusion_node(torch, kernel, plain, args, label: str) -> float:
+    """One fusion kernel launch against its plain version: float32 within
+    atol 1e-6, bf16 within 1 ulp, output in the input's dtype and
+    channels_last. Returns the f32 error (0 for bf16)."""
+    dtype = args[0].dtype
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    want = plain(*args)
+    check(got.dtype == dtype and got.is_contiguous(
+        memory_format=torch.channels_last), f"{label}: output dtype/layout")
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        check(diff.max().item() <= 1e-6, f"{label} f32: {diff.max().item()}")
+        return diff.max().item()
+    ulps = (diff / bf16_ulp(want)).max().item()
+    check(ulps <= 1.0, f"{label} bf16: {ulps} ulp")
+    log(f"{label} bf16: max {ulps:.0f} ulp")
+    return 0.0
 
 
 def mbconv_shapes(model_name: str, image_size: int):
@@ -441,11 +453,11 @@ def mbconv_inputs(torch, gen, batch, shape, dtype):
             randn(ce) * 0.1)
 
 
-# bf16 z against the plain version: at most 1 ulp, and at most this share of
-# the elements off at all. Set from readings on an H100 80GB HBM3 at 700 W
-# (0 ulp at every element of every shape): the kernel's f32 expand sums
-# may round y to the other bf16 neighbour where cuBLAS's do not, but a flip
-# moves z by less than 1 ulp and is rare.
+# bf16 z against the plain version that sums the expand in the kernel's k
+# order (``sequential``; a matmul's order, which cuBLAS picks by shape, can
+# round y to the other bf16 neighbour): at most 1 ulp, and at most this
+# share of the elements off at all. Set from readings on an H100 80GB HBM3
+# at 700 W (0 ulp at every element of every shape).
 BF16_MAX_ULP = 1.0
 BF16_OFF_SHARE = 1e-5
 
@@ -463,7 +475,7 @@ def unrounded_plain(mk, prepare, x, we, s0, b0, w_dw, s1, b1, stride):
     """The plain version without the bf16 round of y before the depthwise:
     what a kernel that skipped it would give. The bf16 check must reject it."""
     z, _ = mk._expand_dw_plain(x.float(), *prepare(x, we, s0, b0), w_dw, s1,
-                               b1, stride)
+                               b1, stride, sequential=True)
     return z.to(x.dtype)
 
 
@@ -472,7 +484,8 @@ def phase_mbconv(torch, dev):
     versions at D0@512's 11 block shapes at each of ``MAIN_BATCHES`` and
     efficientnet-b6's widest at B = 2. float32 (TF32 off): z and
     se_mean within 1e-5, as only the order of f32 sums differs. bf16: z
-    within ``bf16_agreement``'s limits, which the plain version without the
+    within ``bf16_agreement``'s limits of the plain version with the
+    expand summed in k order, which the plain version without the
     bf16 round of y must fail at every case; se_mean within 1e-3 relative
     (+1e-5). Returns the largest f32 error."""
     from efficientdet_tpu_torch.kernels import mbconv_kernel as mk
@@ -489,39 +502,50 @@ def phase_mbconv(torch, dev):
                      mk._prepare_flat),
                     (mk.fused_expand_dw, mk.fused_expand_dw_plain,
                      mk._prepare_v1)):
-                name = f"{kernel.__name__} {shape} B={batch} {dtype}"
-                z, se = kernel(x, *weights, stride=stride)
-                torch.cuda.synchronize()
-                zp, sep = plain(x, *weights, stride=stride)
-                check(z.shape == zp.shape and z.dtype == dtype
-                      and se.shape == sep.shape and se.dtype == torch.float32,
-                      f"{name}: output shapes or dtypes")
-                check(bool(torch.isfinite(z).all()), f"{name}: non-finite z")
-                dse = (se - sep).abs()
-                if dtype == torch.float32:
-                    dz = (z - zp).abs().max().item()
-                    check(dz <= 1e-5 and dse.max().item() <= 1e-5,
-                          f"{name}: f32 z err {dz}, se err "
-                          f"{dse.max().item()}")
-                    err = max(err, dz, dse.max().item())
-                    log(f"{name}: z err {dz:.3g}, se err "
-                        f"{dse.max().item():.3g}")
-                    continue
-                max_ulp, off, ok = bf16_agreement(z, zp)
-                check(ok, f"{name}: z max {max_ulp} ulp, {off} of "
-                      f"{z.numel()} elements off")
-                u_ulp, u_off, u_ok = bf16_agreement(
-                    unrounded_plain(mk, prepare, x, *weights, stride), zp)
-                check(not u_ok, f"{name}: the check cannot tell a kernel "
-                      f"without the bf16 round of y ({u_off} off, max "
-                      f"{u_ulp} ulp)")
-                check(bool((dse <= 1e-3 * sep.abs() + 1e-5).all()),
-                      f"{name}: se_mean err {dse.max().item()}")
-                log(f"{name}: max {max_ulp:.1f} ulp, {off} of {z.numel()} "
-                    f"off (without the y round: {u_off} off, max "
-                    f"{u_ulp:.1f} ulp), se err {dse.max().item():.3g}")
+                err = max(err, check_mbconv_case(
+                    torch, kernel, plain, prepare, x, weights, stride,
+                    f"{kernel.__name__} {shape} B={batch} {dtype}"))
         log(f"mbconv kernel matches plain at {shape} B={batch}")
     return err
+
+
+def check_mbconv_case(torch, kernel, plain, prepare, x, weights, stride,
+                      name: str) -> float:
+    """One MBConv kernel launch against its plain version, by
+    ``phase_mbconv``'s criterion. Returns the f32 error (0 for bf16)."""
+    from efficientdet_tpu_torch.kernels import mbconv_kernel as mk
+    dtype = x.dtype
+    z, se = kernel(x, *weights, stride=stride)
+    torch.cuda.synchronize()
+    zp, sep = plain(x, *weights, stride=stride,
+                    sequential=dtype != torch.float32)
+    check(z.shape == zp.shape and z.dtype == dtype
+          and se.shape == sep.shape and se.dtype == torch.float32,
+          f"{name}: output shapes or dtypes")
+    check(bool(torch.isfinite(z).all()), f"{name}: non-finite z")
+    dse = (se - sep).abs()
+    if dtype == torch.float32:
+        dz = (z - zp).abs().max().item()
+        check(dz <= 1e-5 and dse.max().item() <= 1e-5,
+              f"{name}: f32 z err {dz}, se err {dse.max().item()}")
+        log(f"{name}: z err {dz:.3g}, se err {dse.max().item():.3g}")
+        return max(dz, dse.max().item())
+    max_ulp, off, ok = bf16_agreement(z, zp)
+    check(ok, f"{name}: z max {max_ulp} ulp, {off} of {z.numel()} elements "
+          "off")
+    u_ulp, u_off, u_ok = bf16_agreement(
+        unrounded_plain(mk, prepare, x, *weights, stride), zp)
+    check(not u_ok, f"{name}: the check cannot tell a kernel without the "
+          f"bf16 round of y ({u_off} off, max {u_ulp} ulp)")
+    check(bool((dse <= 1e-3 * sep.abs() + 1e-5).all()),
+          f"{name}: se_mean err {dse.max().item()}")
+    # For the record: the plain version whose expand is one matmul.
+    m_ulp, m_off, _ = bf16_agreement(z, plain(x, *weights, stride=stride)[0])
+    log(f"{name}: max {max_ulp:.1f} ulp, {off} of {z.numel()} off (without "
+        f"the y round: {u_off} off, max {u_ulp:.1f} ulp; expand as one "
+        f"matmul: {m_off} off, max {m_ulp:.1f} ulp), se err "
+        f"{dse.max().item():.3g}")
+    return 0.0
 
 
 def reset_launches():
@@ -540,8 +564,9 @@ def launch_counts(counters):
     return {fn.__name__: fn.launches for fn in counters}
 
 
-def check_detections(torch, det, batch: int) -> int:
-    """Finite, well-formed fixed-shape detections; returns the valid count."""
+def check_detections(torch, det, batch: int, size: int = IMAGE_SIZE) -> int:
+    """Finite, well-formed fixed-shape detections of ``size`` px images;
+    returns the valid count."""
     scores, classes, boxes, valid = det
     d = scores.shape[1]
     check(tuple(scores.shape) == (batch, d) and tuple(boxes.shape)
@@ -556,7 +581,7 @@ def check_detections(torch, det, batch: int) -> int:
     check(bool(((classes[valid] >= 0) & (classes[valid] < 80)).all()),
           "class out of range")
     vb = boxes[valid]
-    check(bool((vb[:, :2] >= 0).all() and (vb[:, 2:] <= IMAGE_SIZE).all()),
+    check(bool((vb[:, :2] >= 0).all() and (vb[:, 2:] <= size).all()),
           "box outside the image")
     return int(valid.sum())
 
@@ -758,12 +783,13 @@ def build_train_model(torch, cfg, dev, state, remat=False, fused=False):
     return model.train().to(memory_format=torch.channels_last)
 
 
-def synthetic_batch(torch, dev, batch: int, seed: int):
-    """uint8 ``SyntheticDetection`` images (512 px, up to 8 objects of 80
-    classes) and their annotations padded to 100 boxes, on the card."""
+def synthetic_batch(torch, dev, batch: int, seed: int,
+                    size: int = IMAGE_SIZE):
+    """uint8 ``SyntheticDetection`` images (``size`` px, up to 8 objects of
+    80 classes) and their annotations padded to 100 boxes, on the card."""
     from efficientdet_tpu_torch.data import (SyntheticDetection, collate,
                                              to_device)
-    ds = SyntheticDetection(length=batch, image_size=IMAGE_SIZE,
+    ds = SyntheticDetection(length=batch, image_size=size,
                             num_classes=80, max_objects=8, seed=seed)
     return to_device(collate([ds[i] for i in range(batch)], max_boxes=100,
                              uint8_images=True), dev)
@@ -2265,6 +2291,556 @@ def phase_native(torch, dev, profile_dir=None):
     return totals
 
 
+# ------------------------------------------------------- phase_variants
+# EfficientDet-D1..D7 at their published sizes (config.py EFFICIENTDET).
+D7 = "efficientdet-d7"
+D1_D6 = tuple(f"efficientdet-d{i}" for i in range(1, 7))
+D7_BATCHES = (1, 4)
+D7_STEPS = 8              # timed D7 serving steps per batch and path
+VARIANT_STEPS = 6         # timed D1-D6 steps per path, B = 1
+VARIANT_ROUNDS = 2        # alternating rounds the steps are split into
+VARIANT_WARMUP = 2
+D7_TRAIN_BATCH, D7_TRAIN_STEPS = 2, 3
+# Card against CPU, f32, threshold 0: D7's widths at this size. 1636 px is
+# D7's own; the CPU pass's seconds are printed beside it.
+D7_CPU_SIZE = 1636
+# Detections of two f32 runs that differ only in the order of sums (cuDNN
+# against the CPU's convolutions, or the fused backbone against the module
+# one): valid slots equal; scores slot by slot within SCORE_TOL (the
+# EVAL_SCORE_TOL of phase_eval); every detection scored clearly above the
+# lowest kept one pairs with one of the other run of the same class, box
+# within FUSED_BOX_TOL px (phase_f32_parity's 1e-2) or, against the CPU at
+# 1636 px, CPU_BOX_TOL (a 1e-5 relative error of a delta moves a box edge
+# there by up to ~0.02 px).
+SCORE_TOL = 1e-4
+FUSED_BOX_TOL = 1e-2
+CPU_BOX_TOL = 0.1
+
+
+def path_launches(model, path: str):
+    """{wrapper: launches} of one eval step of ``model`` on ``path``: one
+    NMS; on ``fusion`` one kernel per BiFPN node whose levels are exactly
+    2x apart, in each of the D_bifpn modules; on ``fusedmb`` one MBConv
+    launch per expanded block."""
+    from efficientdet_tpu_torch.models import pyramid_shapes_for_model
+    grid = pyramid_shapes_for_model(model)
+    twice = [(2 * h, 2 * w) for h, w in grid]
+    modules = model.config.D_bifpn
+    fusion_on = path == "fusion"
+    blocks = sum(b.block_args.expand_ratio != 1
+                 for b in model.backbone._blocks)
+    return {"nms_select": 1,
+            "fuse_topdown": fusion_on * modules * sum(
+                grid[i - 1] == twice[i] for i in range(1, len(grid))),
+            "fuse_bottomup": fusion_on * modules * sum(
+                grid[i] == twice[i + 1] for i in range(len(grid) - 2)),
+            "fused_expand_dw_flat": (path == "fusedmb") * blocks,
+            "fused_expand_dw": 0}
+
+
+def counted(counters, fn, expect, what: str):
+    """``fn()``, checking that it launched exactly ``expect`` kernels."""
+    before = launch_counts(counters)
+    out = fn()
+    got = {k: v - before[k] for k, v in launch_counts(counters).items()}
+    check(got == expect, f"{what}: launches {got}, expected {expect}")
+    return out
+
+
+def time_paths(torch, counters, steps, expect, images, n: int, label: str):
+    """The eval steps ``steps`` {path: step} on ``images``, alternated
+    (forward, then backward order) over ``VARIANT_ROUNDS``, ``n`` timed
+    steps each after ``VARIANT_WARMUP``, each step's launches checked
+    against ``expect[path]``; then one step each for its peak memory (the
+    models resident). Returns {path: {ms, q1, q3, img_s, peak_gib}}."""
+    b, size = images.shape[0], images.shape[1]
+    times = {p: [] for p in steps}
+    kept = 0
+    for p, step in steps.items():
+        for _ in range(VARIANT_WARMUP):
+            counted(counters, lambda: step(images), expect[p], label)
+    for r in range(VARIANT_ROUNDS):
+        for p in list(steps)[::1 if r % 2 == 0 else -1]:
+            for _ in range(n // VARIANT_ROUNDS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                det = counted(counters, lambda: steps[p](images), expect[p],
+                              f"{label} {p}")
+                torch.cuda.synchronize()
+                times[p].append((time.perf_counter() - t0) * 1e3)
+            kept += check_detections(torch, det, b, size)
+    check(kept > 0, f"{label}: no detections at all")
+    out = {}
+    for p, step in steps.items():
+        torch.cuda.reset_peak_memory_stats()
+        counted(counters, lambda: step(images), expect[p], label)
+        torch.cuda.synchronize()
+        q1, ms, q3 = statistics.quantiles(times[p], n=4)
+        out[p] = dict(ms=ms, q1=q1, q3=q3, img_s=b / ms * 1e3,
+                      peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        log(f"serving {label} bf16 {p} B={b}: median {ms:.3f} ms/step "
+            f"(quartiles {q1:.3f}, {q3:.3f}; {len(times[p])} steps), "
+            f"{b / ms * 1e3:.2f} img/s, peak {out[p]['peak_gib']:.2f} GiB")
+    return out
+
+
+def compare_detection_sets(torch, got, want, box_tol: float, label: str):
+    """``got`` against ``want`` by the criterion of ``SCORE_TOL`` above;
+    returns (max score diff, max box diff of the paired detections)."""
+    got = [t.cpu() for t in got]
+    want = [t.cpu() for t in want]
+    check(torch.equal(got[3], want[3]), f"{label}: valid slots differ")
+    score_err = (got[0] - want[0]).abs().max().item()
+    check(score_err <= SCORE_TOL, f"{label}: scores differ by {score_err}")
+    box_err = 0.0
+    for b in range(got[0].shape[0]):
+        v = got[3][b]
+        gs, gc, gb = got[0][b][v], got[1][b][v], got[2][b][v]
+        ws, wc, wb = want[0][b][v], want[1][b][v], want[2][b][v]
+        if not len(gs):
+            continue
+        floor = min(gs.min().item(), ws.min().item()) + 2 * SCORE_TOL
+        free = torch.ones(len(ws), dtype=torch.bool)
+        for s, c, box in zip(gs, gc, gb):
+            if s.item() <= floor:
+                continue
+            dist = (wb - box).abs().amax(-1)
+            match = (free & (wc == c) & (dist <= box_tol)
+                     & ((ws - s).abs() <= SCORE_TOL))
+            check(bool(match.any()), f"{label}: image {b} detection "
+                  f"{c.item()} {box.tolist()} {s.item()} has no partner")
+            i = int(match.int().argmax())
+            free[i] = False
+            box_err = max(box_err, dist[i].item())
+    return score_err, box_err
+
+
+def seeded_images(torch, batch: int, size: int, seed: int):
+    return torch.randint(0, 256, (batch, size, size, 3), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(seed))
+
+
+def d7_serving(torch, dev, cfg, state, counters):
+    """D7@1636 bf16 at B = 1 and 4 on the plain and fusion paths; the fused
+    backbone refused before any launch. Returns (timings, {B: NMS inputs
+    of the plain model's candidates})."""
+    from efficientdet_tpu_torch import make_eval_step
+    from efficientdet_tpu_torch.ops.nms import nms_candidates
+    from efficientdet_tpu_torch.train import maybe_normalize_images
+    models = {fused: build_model(torch, cfg, dev, state, torch.bfloat16,
+                                 fused) for fused in (False, True)}
+    size = cfg.input_size
+    check(tuple(models[False].anchors.shape) == (498510, 4),
+          "D7@1636 anchor count")
+    steps = {"plain": make_eval_step(models[False], cfg),
+             "fusion": make_eval_step(models[True], cfg)}
+    expect = {p: path_launches(models[p == "fusion"], p) for p in steps}
+    check(expect["fusion"]["fuse_topdown"] == 16
+          and expect["fusion"]["fuse_bottomup"] == 16,
+          f"D7 fusion nodes per step {expect['fusion']}")
+    before = launch_counts(counters)
+    try:
+        make_eval_step(models[False], cfg, fused_backbone=True)
+    except ValueError as e:
+        check("differs from the model's" in str(e)
+              and launch_counts(counters) == before,
+              f"fused refusal: {e}; launches {launch_counts(counters)}")
+        log(f"D7@1636 fused backbone refused before any launch: {e}")
+    else:
+        raise AssertionError("the fused backbone served D7@1636")
+    timings, candidates = {}, {}
+    for b in D7_BATCHES:
+        images = seeded_images(torch, b, size, SEED + 20 + b).to(dev)
+        timings[b] = time_paths(torch, counters, steps, expect, images,
+                                D7_STEPS, "D7@1636")
+        with torch.inference_mode():
+            top_s, top_b, _ = nms_candidates(
+                *models[False].serving_forward(
+                    maybe_normalize_images(images)),
+                models[False].anchors, size, size, cfg.threshold,
+                cfg.pre_nms_top_k)
+        candidates[b] = (top_s, top_b)
+    return timings, candidates
+
+
+def d7_card_vs_cpu(torch, dev, cfg, state, counters):
+    """f32, TF32 off, threshold 0: the eval step on the card against the
+    same weights' on the CPU, at ``D7_CPU_SIZE``. Returns the seconds of
+    the CPU pass and the largest score and box differences."""
+    import dataclasses
+
+    from efficientdet_tpu_torch import make_eval_step
+    pcfg = dataclasses.replace(cfg, input_size=D7_CPU_SIZE, threshold=0.0)
+    images = seeded_images(torch, 1, D7_CPU_SIZE, SEED + 30)
+    card = build_model(torch, pcfg, dev, state, torch.float32, False)
+    got = counted(counters, lambda: make_eval_step(card, pcfg)(
+        images.to(dev)), path_launches(card, "plain"), "D7 f32 card")
+    del card
+    cpu = build_model(torch, pcfg, torch.device("cpu"), state,
+                      torch.float32, False)
+    t0 = time.perf_counter()
+    want = make_eval_step(cpu, pcfg)(images)
+    seconds = time.perf_counter() - t0
+    score_err, box_err = compare_detection_sets(torch, got, want,
+                                                CPU_BOX_TOL, "D7 card vs CPU")
+    log(f"D7@{D7_CPU_SIZE} f32 threshold 0, card against CPU "
+        f"({torch.get_num_threads()} threads, {seconds:.1f} s on the "
+        f"CPU): {int(want.valid.sum())} detections each, scores within "
+        f"{score_err:.3g}, boxes within {box_err:.3g} px")
+    return dict(cpu_s=seconds, score_err=score_err, box_err=box_err)
+
+
+def d7_probability_path(torch, dev, cfg, state, counters):
+    """``postprocess_detections(*model(x), anchors_for_model(model), cfg)``
+    against the eval step on the same images: f32, detections equal with
+    scores within 1e-6; bf16, how many detections differ (the sigmoid is
+    rounded to bf16 on the probability path only). Then ``batched_nms``
+    with ``select`` on the card against ``mask`` on the CPU on the f32
+    probabilities and the decoded boxes: equal."""
+    from efficientdet_tpu_torch import make_eval_step
+    from efficientdet_tpu_torch.models import (anchors_for_model,
+                                               postprocess_detections)
+    from efficientdet_tpu_torch.ops import batched_nms, decode_boxes
+    from efficientdet_tpu_torch.train import maybe_normalize_images
+    images = seeded_images(torch, 1, cfg.input_size, SEED + 31).to(dev)
+    one_nms = dict(dict.fromkeys(launch_counts(counters), 0), nms_select=1)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = build_model(torch, cfg, dev, state, dtype, False)
+        anchors = anchors_for_model(model).to(dev)
+        with torch.inference_mode():
+            probs, deltas = model(maybe_normalize_images(images))
+            got = counted(counters, lambda: postprocess_detections(
+                probs, deltas, anchors, cfg), one_nms, "probability path")
+        want = counted(counters, lambda: make_eval_step(model, cfg)(images),
+                       one_nms, "eval step")
+        fields = {"valid": got.valid != want.valid,
+                  "classes": got.classes != want.classes,
+                  "boxes": (got.boxes != want.boxes).any(-1)}
+        differ = int(sum(fields.values()).bool().sum())
+        by_field = {k: int(v.sum()) for k, v in fields.items()}
+        score_err = (got.scores - want.scores).abs().max().item()
+        if dtype == torch.float32:
+            check(differ == 0 and score_err <= 1e-6,
+                  f"f32 probability path: {differ} detections differ "
+                  f"({by_field}), scores by {score_err}")
+            with torch.inference_mode():
+                boxes = decode_boxes(anchors, deltas)
+                select = counted(counters, lambda: batched_nms(
+                    probs, boxes, cfg.threshold, cfg.iou_threshold,
+                    cfg.pre_nms_top_k, cfg.max_detections), one_nms,
+                    "batched_nms select")
+            mask = batched_nms(probs.cpu(), boxes.cpu(), cfg.threshold,
+                               cfg.iou_threshold, cfg.pre_nms_top_k,
+                               cfg.max_detections, method="mask")
+            check(all(torch.equal(a.cpu(), b) for a, b in zip(select, mask)),
+                  "batched_nms select on the card differs from mask on "
+                  "the CPU")
+            log(f"batched_nms select (card) equals mask (CPU) on D7's f32 "
+                f"probabilities: {int(mask.valid.sum())} kept")
+        log(f"D7@1636 {dtype} probability path against the eval step: "
+            f"{differ} of {got.valid.numel()} detection slots differ "
+            f"({by_field}), scores within {score_err:.3g} "
+            f"({int(want.valid.sum())} valid)")
+        out[str(dtype)] = dict(differ=differ, score_err=score_err)
+        del model, probs, deltas
+    return out
+
+
+def d7_training(torch, dev, cfg, state, counters):
+    """``make_train_step`` at B = 2, bf16, frozen BN, ``D7_TRAIN_STEPS``
+    steps with and without ``remat``: ms/step, peak memory, finite losses
+    and grad norms; no kernel launches (the fusion kernels are off).
+
+    The BN statistics are calibrated again on the training batch's own
+    images: those of ``state`` come from uniform noise, and over B6's 45
+    blocks the gap between the two kinds of image compounds block by block
+    (without this, the synthetic images' deepest features and the loss
+    reach ~1e8 at D7@1636)."""
+    import numpy as np
+
+    from efficientdet_tpu_torch import (EfficientDet, create_train_state,
+                                        make_train_step)
+    from efficientdet_tpu_torch.utils.seeded import calibrate_batchnorm
+    batch = synthetic_batch(torch, dev, D7_TRAIN_BATCH, SEED + 32,
+                            cfg.input_size)
+    model = EfficientDet(cfg, device=dev)
+    model.load_state_dict(state, strict=True)
+    calibrate_batchnorm(model.eval(), batch["images"])
+    state = model.state_dict()
+    del model
+    none = dict.fromkeys(launch_counts(counters), 0)
+    out = {}
+    for remat in (False, True):
+        model = EfficientDet(cfg, dtype=torch.bfloat16, remat=remat,
+                             device=dev)
+        model.load_state_dict(state, strict=True)
+        model = model.train().to(memory_format=torch.channels_last)
+        train_state = create_train_state(model)
+        step = make_train_step(model, cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, metrics = [], []
+        for _ in range(D7_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            metrics.append(counted(counters, lambda: step(
+                train_state, batch, SEED), none, "D7 train step"))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        values = {k: [float(m[k]) for m in metrics] for k in metrics[0]}
+        check(all(np.isfinite(v).all() for v in values.values()),
+              f"non-finite D7 training metrics {values}")
+        log(f"train D7@1636 bf16 frozen BN B={D7_TRAIN_BATCH} remat="
+            f"{remat}: {', '.join(f'{t:.1f}' for t in times)} ms/step "
+            f"(first includes warm-up), peak {peak:.2f} GiB; losses "
+            f"{values['loss']}, grad_norm {values['grad_norm']}")
+        out[f"remat={remat}"] = dict(ms=times, peak_gib=peak,
+                                     loss=values["loss"],
+                                     grad_norm=values["grad_norm"])
+        del model, train_state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def variants_d1_d6(torch, dev, counters):
+    """D1..D6 at their published sizes, B = 1, bf16: the plain and fused-
+    backbone paths timed, alternated, with their launches checked; then
+    f32 (TF32 off) the fused path's detections against the module path's
+    (``compare_detection_sets``, boxes within ``FUSED_BOX_TOL``)."""
+    from efficientdet_tpu_torch import DetectorConfig, make_eval_step
+    out = {}
+    for network in D1_D6:
+        cfg = DetectorConfig(num_classes=80, network=network).resolve()
+        state = seeded_state(torch, cfg, dev)
+        label = f"{network[-2:].upper()}@{cfg.input_size}"
+        images = seeded_images(torch, 1, cfg.input_size, SEED + 40).to(dev)
+        res = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            model = build_model(torch, cfg, dev, state, dtype, False)
+            steps = {"plain": make_eval_step(model, cfg),
+                     "fusedmb": make_eval_step(model, cfg,
+                                               fused_backbone=True)}
+            expect = {p: path_launches(model, p) for p in steps}
+            if dtype == torch.bfloat16:
+                res.update(time_paths(torch, counters, steps, expect,
+                                      images, VARIANT_STEPS, label))
+                res["mbconv_launches_per_step"] = \
+                    expect["fusedmb"]["fused_expand_dw_flat"]
+                continue
+            det = {p: counted(counters, lambda: steps[p](images), expect[p],
+                              f"{label} f32 {p}") for p in steps}
+            res["f32"] = compare_detection_sets(
+                torch, det["fusedmb"], det["plain"], FUSED_BOX_TOL,
+                f"{label} f32 fused vs module")
+            log(f"{label} f32 fused backbone against module backbone: "
+                f"{int(det['plain'].valid.sum())} detections, scores within "
+                f"{res['f32'][0]:.3g}, boxes within {res['f32'][1]:.3g} px")
+            del model, steps
+        out[network] = res
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_variant_kernels(torch, dev, candidates):
+    """Each kernel against its plain version at the shapes this phase gave
+    it: NMS on D7's candidates (bit-equal); the fusion nodes at D7@1636's
+    exact-2x levels (C = 384; B = 1 and 4, f32 and bf16); the MBConv kernel
+    (flat contract) at each distinct block shape of efficientnet-b1..b6 at
+    D1..D6's published sizes (``d1_d6_mbconv_shapes``), B = 1, f32 and
+    bf16. Returns the largest f32 error per kernel."""
+    from efficientdet_tpu_torch.kernels import fusion
+    from efficientdet_tpu_torch.kernels import mbconv_kernel as mk
+    from efficientdet_tpu_torch.kernels.nms_kernel import (nms_select,
+                                                           nms_select_plain)
+    err = {"nms_select": 0.0, "fuse_topdown": 0.0, "fuse_bottomup": 0.0,
+           "mbconv_fused": 0.0}
+    for b, (top_s, top_b) in candidates.items():
+        got = nms_select(top_s, top_b, 0.5, 100)
+        torch.cuda.synchronize()
+        want = nms_select_plain(top_s, top_b, 0.5, 100)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"NMS kernel differs from plain on D7's candidates at B={b}")
+        log(f"nms on D7@1636's bf16 candidates B={b}: identical, "
+            f"{int((got[0] > 0).sum())} kept")
+    gen = torch.Generator().manual_seed(SEED + 41)
+
+    def rand(b, s, dtype):
+        return torch.randn(b, 384, s, s, generator=gen).to(
+            dev, dtype).contiguous(memory_format=torch.channels_last)
+
+    w2 = torch.tensor([0.37, 0.63], device=dev)
+    w3 = torch.tensor([0.21, 0.33, 0.46], device=dev)
+    for b, dtype in itertools.product(D7_BATCHES,
+                                      (torch.float32, torch.bfloat16)):
+        for s in D7_TOPDOWN:
+            err["fuse_topdown"] = max(err["fuse_topdown"], check_fusion_node(
+                torch, fusion.fuse_topdown, fusion.fuse_topdown_plain,
+                (rand(b, s, dtype), rand(b, s // 2, dtype), w2),
+                f"fuse_topdown D7 B={b} side {s} C=384"))
+        for s in D7_BOTTOMUP:
+            err["fuse_bottomup"] = max(err["fuse_bottomup"], check_fusion_node(
+                torch, fusion.fuse_bottomup, fusion.fuse_bottomup_plain,
+                (rand(b, s, dtype), rand(b, 2 * s, dtype), rand(b, s, dtype),
+                 w3), f"fuse_bottomup D7 B={b} side {s} C=384"))
+    cuda_gen = torch.Generator(device=dev).manual_seed(SEED + 42)
+    shapes = d1_d6_mbconv_shapes()
+    for shape, where in shapes.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            x, *weights = mbconv_inputs(torch, cuda_gen, 1, shape, dtype)
+            err["mbconv_fused"] = max(err["mbconv_fused"], check_mbconv_case(
+                torch, mk.fused_expand_dw_flat, mk.fused_expand_dw_flat_plain,
+                mk._prepare_flat, x, weights, shape[3],
+                f"fused_expand_dw_flat {'/'.join(where)} {shape} B=1 "
+                f"{dtype}"))
+    log(f"mbconv kernel matches plain at the {len(shapes)} distinct block "
+        "shapes of efficientnet-b1..b6 at D1..D6's sizes, B=1, f32 and bf16")
+    return err
+
+
+D7_TOPDOWN = (204, 102)   # big map sides of D7@1636's exact-2x top-down nodes
+D7_BOTTOMUP = (102, 51)   # current map sides of its exact-2x bottom-up nodes
+
+
+def d1_d6_mbconv_shapes():
+    """The distinct block shapes of efficientnet-b1..b6 at D1..D6's
+    published sizes, each with the backbones that have it."""
+    from efficientdet_tpu_torch import DetectorConfig
+    shapes = {}
+    for network in D1_D6:
+        cfg = DetectorConfig(num_classes=80, network=network).resolve()
+        label = f"{cfg.backbone_name[-2:]}@{cfg.input_size}"
+        for shape in dict.fromkeys(mbconv_shapes(cfg.backbone_name,
+                                                 cfg.input_size)):
+            shapes.setdefault(shape, []).append(label)
+    return shapes
+
+
+def d6_mbconv_shapes():
+    """efficientnet-b6's distinct block shapes at D6's 1408 px with the
+    number of blocks of each."""
+    shapes = mbconv_shapes("efficientnet-b6", 1408)
+    return {shape: shapes.count(shape) for shape in shapes}
+
+
+def variant_kernel_times(torch, dev, candidates):
+    """Kernel, plain and bound ms at this phase's new shapes: NMS on D7's
+    candidates at B = 1 and 4; the fusion nodes of one D7 BiFPN module at
+    B = 1, bf16, C = 384, inputs rotated through more than the L2; the
+    MBConv kernel over efficientnet-b6's 42 expanded blocks at 1408 px,
+    B = 1, bf16, beside the module path's ops."""
+    from efficientdet_tpu_torch.kernels import fusion, mbconv_kernel
+    from efficientdet_tpu_torch.kernels.nms_kernel import (nms_select,
+                                                           nms_select_plain)
+    times = {"nms_select": {}}
+    for b, (s, bx) in candidates.items():
+        ms, _ = device_ms(lambda: nms_select(s, bx, 0.5, 100))
+        plain_ms, _ = device_ms(lambda: nms_select_plain(s, bx, 0.5, 100), 5)
+        bound_ms, bound_by = nms_bound(b, s.shape[1], 100)
+        times["nms_select"][f"D7 B={b}"] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        log(f"nms_select D7@1636 candidates B={b}: kernel {ms:.4f} ms "
+            f"device, plain {plain_ms:.4f}, bound {bound_ms:.5f} "
+            f"({bound_by})")
+    gen = torch.Generator().manual_seed(SEED + 43)
+
+    def rand(s):
+        return torch.randn(1, 384, s, s, generator=gen).to(
+            dev, torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+    w2 = torch.tensor([0.37, 0.63], device=dev)
+    w3 = torch.tensor([0.21, 0.33, 0.46], device=dev)
+    for name, kernel, plain, sides in (
+            ("fuse_topdown", fusion.fuse_topdown, fusion.fuse_topdown_plain,
+             D7_TOPDOWN),
+            ("fuse_bottomup", fusion.fuse_bottomup,
+             fusion.fuse_bottomup_plain, D7_BOTTOMUP)):
+        total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+        for s in sides:
+            node_ms, bound_by = fusion_bound(name, 1, s, 384)
+            n_sets = max(2, -(-2 * L2_BYTES
+                              // int(node_ms * 1e-3 * HBM_BYTES_PER_S)))
+            sets = [(rand(s), rand(s // 2), w2) if name == "fuse_topdown"
+                    else (rand(s), rand(2 * s), rand(s), w3)
+                    for _ in range(n_sets)]
+            args = rotating(sets)
+            k_ms, _ = device_ms(lambda: kernel(*args()), 50)
+            p_ms, _ = device_ms(lambda: plain(*args()), 20)
+            log(f"{name} D7@1636 B=1 bf16 side {s} C=384 (L2-cold, "
+                f"{n_sets} sets): kernel {k_ms:.4f} ms device, plain "
+                f"{p_ms:.4f}, bound {node_ms:.4f} ({bound_by})")
+            for key, value in zip(total, (k_ms, p_ms, node_ms)):
+                total[key] += value
+            del sets, args
+        times[name] = dict(total, bound_by=bound_by)
+    cuda_gen = torch.Generator(device=dev).manual_seed(SEED + 44)
+    total = dict.fromkeys(("ms", "plain_ms", "module_ms", "bound_ms"), 0.0)
+    bytes_ms = 0.0
+    for shape, blocks in d6_mbconv_shapes().items():
+        args = mbconv_inputs(torch, cuda_gen, 1, shape, torch.bfloat16)
+        stride = shape[3]
+        k_ms, _ = device_ms(
+            lambda: mbconv_kernel.fused_expand_dw_flat(*args, stride=stride))
+        p_ms, _ = device_ms(
+            lambda: mbconv_kernel.fused_expand_dw_flat_plain(
+                *args, stride=stride), 5)
+        m_ms, _ = device_ms(lambda: module_segment(torch, *args,
+                                                   stride=stride))
+        b_ms, b_by = mbconv_bound(shape, 1)
+        bytes_ms += blocks * b_ms * (b_by == "bytes")
+        for key, value in zip(total, (k_ms, p_ms, m_ms, b_ms)):
+            total[key] += blocks * value
+        log(f"mbconv_fused b6@1408 {shape} x{blocks} B=1 bf16: kernel "
+            f"{k_ms:.4f} ms device, module ops {m_ms:.4f}, plain {p_ms:.4f}, "
+            f"bound {b_ms:.4f} ({b_by}), share {b_ms / k_ms:.3f}")
+    log(f"mbconv_fused over b6's {len(mbconv_shapes('efficientnet-b6', 1408))}"
+        f" blocks at 1408 px B=1 bf16: kernel {total['ms']:.4f} ms device, "
+        f"module ops {total['module_ms']:.4f}, plain {total['plain_ms']:.4f},"
+        f" bound {total['bound_ms']:.4f} (share "
+        f"{total['bound_ms'] / total['ms']:.3f})")
+    times["mbconv_fused"] = dict(
+        total, bound_by="bytes" if 2 * bytes_ms >= total["bound_ms"]
+        else "operations")
+    return times
+
+
+def phase_variants(torch, dev):
+    """EfficientDet-D1..D7 at their published sizes, 80 classes, seeded
+    weights with calibrated BN statistics, bf16 and channels_last unless
+    said otherwise. D7@1636 (B6, W_bifpn 384, D_bifpn 8, A = 498,510):
+    serving at B = 1 and 4 on the plain and fusion paths (16 top-down and
+    16 bottom-up fusion launches a step, one NMS) and the fused backbone's
+    refusal; card against CPU in f32; the probability-input NMS tail; the
+    train step at B = 2 with and without remat. D1..D6: serving at B = 1
+    on the plain and fused-backbone paths, f32 fused against module. Every
+    kernel launch of those runs is counted (the counts set to 0 first) and
+    checked per step; then each kernel is held against its plain version
+    at this phase's shapes and timed beside its bound. Returns
+    {launches, timings, errors}."""
+    from efficientdet_tpu_torch import DetectorConfig
+    t0 = time.perf_counter()
+    cfg = DetectorConfig(num_classes=80, network=D7).resolve()
+    check(cfg.input_size == 1636, "D7's published size")
+    state = seeded_state(torch, cfg, dev)
+    counters = reset_launches()
+    d7, candidates = d7_serving(torch, dev, cfg, state, counters)
+    cpu = d7_card_vs_cpu(torch, dev, cfg, state, counters)
+    probability = d7_probability_path(torch, dev, cfg, state, counters)
+    train = d7_training(torch, dev, cfg, state, counters)
+    del state
+    torch.cuda.empty_cache()
+    variants = variants_d1_d6(torch, dev, counters)
+    launches = launch_counts(counters)
+    log(f"launches over phase_variants' runs: {launches}")
+    errors = check_variant_kernels(torch, dev, candidates)
+    times = variant_kernel_times(torch, dev, candidates)
+    seconds = time.perf_counter() - t0
+    log(f"variants phase {seconds:.1f} s")
+    return dict(launches=launches, d7=d7, cpu=cpu, probability=probability,
+                train=train, variants=variants, errors=errors, times=times,
+                seconds=seconds)
+
+
 def module_segment(torch, x, we, s0, b0, w_dw, s1, b1, stride):
     """What the module backbone runs for one fused segment, for timing:
     cuDNN expand and depthwise convs in x's dtype on channels_last maps,
@@ -2594,6 +3170,7 @@ def main() -> int:
     native_launches = phase_native(torch, dev,
                                    args.out if args.profile else None)
     log(f"native phase {time.perf_counter() - t0:.1f} s")
+    variants = phase_variants(torch, dev)
     times = phase_kernel_times(torch, dev, nms_sets)
     if args.profile:
         phase_profile(torch, dev, cfg, state, args.out)
@@ -2623,6 +3200,14 @@ def main() -> int:
                    "mbconv_fused":
                    native_launches.get("fused_expand_dw_flat", 0)
                    + native_launches.get("fused_expand_dw", 0)}
+    # Launches over phase_variants' D1-D7 runs, and the kernels' times
+    # and errors at its shapes.
+    variant_runs = {"nms_select": variants["launches"]["nms_select"],
+                    "fuse_topdown": variants["launches"]["fuse_topdown"],
+                    "fuse_bottomup": variants["launches"]["fuse_bottomup"],
+                    "mbconv_fused":
+                    variants["launches"]["fused_expand_dw_flat"]
+                    + variants["launches"]["fused_expand_dw"]}
     sources = {
         "nms_select": ("cuda", "efficientdet_tpu_torch/csrc/nms_select.cu",
                        "efficientdet_tpu/kernels/nms_kernel.py:100",
@@ -2650,7 +3235,11 @@ def main() -> int:
                  "launches_per_step": per_step[name],
                  "eval_launches": eval_runs[name],
                  "native_phase_launches": native_runs[name],
-                 "parallel_launches": parallel_runs[name], "max_abs_err": err,
+                 "parallel_launches": parallel_runs[name],
+                 "variants_launches": variant_runs[name],
+                 "variants": dict(variants["times"][name],
+                                  max_abs_err=variants["errors"][name]),
+                 "max_abs_err": max(err, variants["errors"][name]),
                  "ms": t["ms"], "plain_ms": t["plain_ms"],
                  "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                  # No single PyTorch call computes any of these functions.
@@ -2668,6 +3257,18 @@ def main() -> int:
         log(f"training D0@512 bf16 {bn_mode} BN B={TRAIN_BATCH} in an NCCL "
             f"group of one: {t['ms']['group_of_one']:.3f} ms/step against "
             f"{t['ms']['one_process']:.3f} in one process")
+    for b, paths in variants["d7"].items():
+        for path, t in paths.items():
+            log(f"D7@1636 bf16 {path} B={b}: {t['ms']:.3f} ms/step, "
+                f"{t['img_s']:.2f} img/s, peak {t['peak_gib']:.2f} GiB")
+    for network, res in variants["variants"].items():
+        log(f"{network} B=1 bf16: plain {res['plain']['ms']:.3f} ms "
+            f"({res['plain']['peak_gib']:.2f} GiB), fusedmb "
+            f"{res['fusedmb']['ms']:.3f} ms ({res['fusedmb']['peak_gib']:.2f}"
+            f" GiB, {res['mbconv_launches_per_step']} MBConv launches)")
+    for mode, t in variants["train"].items():
+        log(f"train D7@1636 bf16 B={D7_TRAIN_BATCH} {mode}: "
+            f"{t['ms'][-1]:.1f} ms/step, peak {t['peak_gib']:.2f} GiB")
     gloo_ms = ", ".join(f"{v:.1f}" for v in parallel["gloo"]["ms"])
     log(f"2 gloo ranks on one card, D0@512 f32 train BN, global B="
         f"{GLOO_BATCH}: {gloo_ms} ms/step")

@@ -41,7 +41,8 @@
 //   f32 sum on the CUDA cores, in k order: the tensor cores truncate their
 //   sums, and this keeps that to one truncation of each 16-term partial.
 // - y and z are computed with a fast swish (ex2 and rcp on the special
-//   function unit). The plain version sums the expand in k order with fused
+//   function unit). The plain version (with `sequential`, the reference of
+//   the bf16 checks) sums the expand in k order with fused
 //   multiply-adds, uses the exact swish, and rounds y and z to bf16; so
 //   wherever a bf16 rounding boundary lies within the two results' bounded
 //   difference (6 u ||x|| ||w|| for the sum, u = 2^-24, with the norms

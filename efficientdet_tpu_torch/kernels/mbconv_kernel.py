@@ -109,10 +109,25 @@ def _prepare_v1(x, w_expand, scale0, bias0):
 
 
 # ------------------------------------------------------------ plain versions
-def _expand_dw_plain(x, w, scale, bias, w_dw, scale1, bias1, stride):
+def _expand(x: torch.Tensor, w: torch.Tensor,
+            sequential: bool) -> torch.Tensor:
+    """x (B, H, W, Cin) @ w (Cin, Ce) in float32: one matmul, whose order
+    of sums the library picks by shape, or with ``sequential`` each sum in
+    k order, one multiply-add per input channel."""
+    if not sequential:
+        return torch.matmul(x.float(), w.float())
+    xf, wf = x.float(), w.float()
+    y = torch.zeros(*x.shape[:3], w.shape[1], device=x.device)
+    for k in range(x.shape[3]):
+        y.addcmul_(xf[..., k:k + 1], wf[k])
+    return y
+
+
+def _expand_dw_plain(x, w, scale, bias, w_dw, scale1, bias1, stride,
+                     sequential=False):
     _, h, wi, _ = x.shape
     k, _, ce = w_dw.shape
-    y = torch.matmul(x.float(), w.float()) * scale + bias
+    y = _expand(x, w, sequential) * scale + bias
     y = F.silu(y).to(x.dtype).float()
     pt, pb = same_padding_1d(h, k, stride)
     pl, pr = same_padding_1d(wi, k, stride)
@@ -124,17 +139,23 @@ def _expand_dw_plain(x, w, scale, bias, w_dw, scale1, bias1, stride):
 
 
 def fused_expand_dw_plain(x, w_expand, scale0, bias0, w_dw, scale1, bias1,
-                          stride: int = 1) -> Pair:
-    """v1 contract: (z (B, Ho, Wo, Ce) x.dtype, se_mean (B, Ce) f32)."""
+                          stride: int = 1, sequential: bool = False) -> Pair:
+    """v1 contract: (z (B, Ho, Wo, Ce) x.dtype, se_mean (B, Ce) f32).
+    ``sequential`` sums the expand in the kernel's k order (``_expand``):
+    the reference for the kernel's bf16 rounding of y, which a matmul's
+    order, chosen by shape, can move by an ulp where y lies near a
+    rounding boundary."""
     return _expand_dw_plain(x, *_prepare_v1(x, w_expand, scale0, bias0),
-                            w_dw, scale1, bias1, stride)
+                            w_dw, scale1, bias1, stride, sequential)
 
 
 def fused_expand_dw_flat_plain(x, w_expand, scale0, bias0, w_dw, scale1,
-                               bias1, stride: int = 1) -> Pair:
-    """flat contract: (z (B, Ho, Wo, Ce) x.dtype, se_mean (B, Ce) f32)."""
+                               bias1, stride: int = 1,
+                               sequential: bool = False) -> Pair:
+    """flat contract: (z (B, Ho, Wo, Ce) x.dtype, se_mean (B, Ce) f32);
+    ``sequential`` as in ``fused_expand_dw_plain``."""
     return _expand_dw_plain(x, *_prepare_flat(x, w_expand, scale0, bias0),
-                            w_dw, scale1, bias1, stride)
+                            w_dw, scale1, bias1, stride, sequential)
 
 
 # ------------------------------------------------------------ CUDA kernel

@@ -1,7 +1,6 @@
 """BiFPN neck with fast-normalized weighted fusion.
 
-Counterpart of ``efficientdet_tpu/models/bifpn.py`` on the serving path
-(D0-D6: the pyramid is the five fused levels, no extra levels):
+Counterpart of ``efficientdet_tpu/models/bifpn.py``:
 
 - 1x1 lateral convs (bias, no norm/act) project the backbone levels to
   ``out_channels``;
@@ -12,7 +11,14 @@ Counterpart of ``efficientdet_tpu/models/bifpn.py`` on the serving path
 - top-down nodes (nearest 2x upsample), then bottom-up nodes (2x2 max pool
   plus a skip from the module's inputs), then the top node, each followed by
   one 3x3 conv; the convs are listed in that order, as the reference's
-  ``bifpn_convs`` are.
+  ``bifpn_convs`` are;
+- extra levels on top where ``num_outs`` exceeds the fused levels (D0-D7
+  use none): stride-2 subsampling, or stride-2 3x3 convs (``fpn_convs``,
+  the reference's name; the JAX package's ``extra_conv_{i}``).
+
+Nodes whose geometry is not exactly 2x (D7 at 1636 px: 25 <- 12 and
+51 <- 25 top-down, 25 from 51 and 12 from 25 bottom-up) take the resize
+helpers of ``layers.py``.
 
 ``use_fusion_kernels`` is the counterpart of ``use_pallas_fusion``: a node
 whose geometry is exactly 2x runs as one Triton kernel
@@ -30,8 +36,8 @@ from torch import nn
 
 from ..device import default_device
 from ..kernels import fusion
-from .layers import ConvModule, max_pool_2x2_to, upsample_nearest_to, \
-    xavier_uniform_
+from .layers import (ConvModule, max_pool_1x1_stride2, max_pool_2x2_to,
+                     upsample_nearest_to, xavier_uniform_)
 
 
 class BiFPNModule(nn.Module):
@@ -103,26 +109,73 @@ class BiFPNModule(nn.Module):
 
 
 class BiFPN(nn.Module):
-    """Lateral projections + ``stack`` fusion modules. Submodules are named
-    as the reference's (``lateral_convs``, ``stack_bifpn_convs``)."""
+    """Lateral projections + ``stack`` fusion modules, then the extra
+    levels. Submodules are named as the reference's (``lateral_convs``,
+    ``stack_bifpn_convs``, ``fpn_convs``).
+
+    ``start_level``/``end_level`` (-1: all) slice the backbone levels that
+    are fused. Where ``num_outs`` (-1: the fused levels) exceeds them, the
+    pyramid grows on top by stride-2 subsampling
+    (``add_extra_convs=False``), or by stride-2 3x3 convs, the first of
+    which reads the last fused backbone input (``extra_convs_on_inputs``)
+    or the last fused output, with a ReLU before each later one where
+    ``relu_before_extra_convs``."""
 
     def __init__(self, in_channels: Sequence[int], out_channels: int,
-                 stack: int = 2, use_fusion_kernels: bool = False,
-                 device=None):
+                 stack: int = 2, num_outs: int = -1, start_level: int = 0,
+                 end_level: int = -1, add_extra_convs: bool = False,
+                 extra_convs_on_inputs: bool = True,
+                 relu_before_extra_convs: bool = False,
+                 use_fusion_kernels: bool = False, device=None):
         super().__init__()
         device = default_device(device)
+        self.in_channels = list(in_channels)
+        self.start_level = start_level
+        self.end_level = len(in_channels) if end_level == -1 else end_level
+        fused = self.end_level - start_level
+        self.num_outs = num_outs if num_outs > 0 else fused
+        if self.num_outs < fused:
+            raise ValueError(f"num_outs={self.num_outs} < {fused} fused "
+                             "levels")
+        self.add_extra_convs = add_extra_convs
+        self.extra_convs_on_inputs = extra_convs_on_inputs
+        self.relu_before_extra_convs = relu_before_extra_convs
         self.lateral_convs = nn.ModuleList(
-            ConvModule(c, out_channels, 1, device=device) for c in in_channels)
+            ConvModule(c, out_channels, 1, device=device)
+            for c in in_channels[start_level:self.end_level])
         self.stack_bifpn_convs = nn.ModuleList(
-            BiFPNModule(out_channels, len(in_channels),
+            BiFPNModule(out_channels, fused,
                         use_fusion_kernels=use_fusion_kernels, device=device)
             for _ in range(stack))
+        extra = self.num_outs - fused if add_extra_convs else 0
+        self.fpn_convs = nn.ModuleList(
+            ConvModule(in_channels[self.end_level - 1]
+                       if i == 0 and extra_convs_on_inputs else out_channels,
+                       out_channels, 3, stride=2, torch_padding=1,
+                       device=device)
+            for i in range(extra))
 
     def forward(self, inputs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        laterals = [conv(x) for conv, x in zip(self.lateral_convs, inputs)]
+        if len(inputs) != len(self.in_channels):
+            raise ValueError(f"{len(inputs)} inputs for "
+                             f"{len(self.in_channels)} in_channels")
+        laterals = [conv(x) for conv, x in zip(
+            self.lateral_convs, inputs[self.start_level:self.end_level])]
         for module in self.stack_bifpn_convs:
             laterals = module(laterals)
-        return laterals
+        outs = list(laterals)
+        if not self.add_extra_convs:
+            for _ in range(self.num_outs - len(laterals)):
+                outs.append(max_pool_1x1_stride2(outs[-1]))
+        for i, conv in enumerate(self.fpn_convs):
+            if i == 0:
+                src = (inputs[self.end_level - 1]
+                       if self.extra_convs_on_inputs else outs[-1])
+            else:
+                src = (torch.relu(outs[-1]) if self.relu_before_extra_convs
+                       else outs[-1])
+            outs.append(conv(src))
+        return outs
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Xavier-uniform conv kernels, zero biases, fusion weights 0.5."""

@@ -1,5 +1,6 @@
 """EfficientDet assembly: backbone -> BiFPN -> RetinaHead, plus anchors, the
-training forwards and losses, and the NMS tail for serving.
+training forwards and losses, and the NMS tails for serving and for the
+class probabilities.
 
 Counterpart of ``efficientdet_tpu/models/detector.py``. Images go in NHWC
 ``(B, H, W, 3)``, as in the JAX package; inside, tensors are logical NCHW in
@@ -129,6 +130,18 @@ class EfficientDet(nn.Module):
         return self.bbox_head(pyramid, reduce_classes=True)
 
 
+def anchors_for_config(cfg: DetectorConfig) -> torch.Tensor:
+    """(A_total, 4) float32 anchors on the CPU for the configured input size
+    on the ceil pyramid (H_l = ceil(input / 2^l)). That is the model's grid
+    at every input size divisible by 128 (the published D0-D6); elsewhere
+    (D7 at 1636 px, or 164 px) the model's grid is smaller, and
+    ``anchors_for_model`` gives its anchors."""
+    cfg = cfg.resolve()
+    return torch.from_numpy(anchor_ops.anchors_for_image_size(
+        cfg.input_size, tuple(cfg.pyramid_levels), tuple(cfg.anchor_ratios),
+        tuple(cfg.anchor_scales)).copy())
+
+
 def pyramid_shapes_for_model(model: EfficientDet
                              ) -> Tuple[Tuple[int, int], ...]:
     """The model's actual per-level (H, W) grids, from a forward on the
@@ -189,6 +202,27 @@ def detection_loss_from_level_logits(cls_levels, reg_levels, anchor_levels,
     return loss_ops.focal_loss_from_level_logits(
         cls_levels, reg_levels, anchor_levels, annotations,
         alpha=cfg.focal_alpha, gamma=cfg.focal_gamma)
+
+
+def postprocess_detections(cls_probs: torch.Tensor, box_deltas: torch.Tensor,
+                           anchors: torch.Tensor, cfg: DetectorConfig,
+                           score_threshold: Optional[float] = None,
+                           iou_threshold: Optional[float] = None
+                           ) -> nms_ops.Detections:
+    """NMS tail for ``EfficientDet.forward``'s (cls_probs (B, A, C),
+    box_deltas (B, A, 4)): the class max and argmax over the probabilities,
+    then the top K decoded, clipped and suppressed to D, as
+    ``postprocess_from_scores`` does for the serving outputs."""
+    cfg = cfg.resolve()
+    return nms_ops.batched_nms_from_deltas(
+        cls_probs, box_deltas, anchors, cfg.input_size, cfg.input_size,
+        score_threshold=(cfg.threshold if score_threshold is None
+                         else score_threshold),
+        iou_threshold=(cfg.iou_threshold if iou_threshold is None
+                       else iou_threshold),
+        pre_nms_top_k=cfg.pre_nms_top_k,
+        max_detections=cfg.max_detections,
+        approx_topk=cfg.approx_topk)
 
 
 def postprocess_from_scores(scores: torch.Tensor, classes: torch.Tensor,

@@ -175,3 +175,10 @@ class EfficientNetFeatures(nn.Module):
                     nn.init.zeros_(m.bias)
             elif isinstance(m, BatchNorm):
                 m.reset_parameters()
+
+
+def backbone_feature_channels(model_name: str) -> List[int]:
+    """The 7 stage output channels of ``model_name``, without building the
+    module."""
+    blocks_args, _ = get_model_params(model_name)
+    return [b.output_filters for b in blocks_args]

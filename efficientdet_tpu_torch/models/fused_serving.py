@@ -11,16 +11,25 @@ the one block without an expansion stay on cuDNN.
 The order of casts follows the JAX function op for op, since it sets the
 bf16 result: each BN runs in float32 on the conv's output and is cast back
 (one ``addcmul`` pass, where eager float32 multiply, add and cast would be
-four passes over the map). Inference only (no autograd), with frozen BN and
-even input sizes, where the backbone's nominal-size SAME padding equals the
-actual-size padding the kernel uses.
+four passes over the map). Inference only (no autograd), with frozen BN.
+
+The kernel pads each expanded block for the size it is given (a stride-2
+block outputs ceil(H / 2)), while the module backbone pads every conv for
+the variant's nominal ImageNet size. The two agree exactly where every
+stride-2 block sees an even size; elsewhere the fused grid is larger (D0 at
+164 px: 21/11/6/3/2 against the module's 20/10/5/2/1; D7 at 1636 px:
+205/103/52/26/13 against 204/102/51/25/12), and anchors made for the
+model's grid would no longer line up with the head's outputs. So
+``fused_backbone_forward`` and ``make_eval_step(..., fused_backbone=True)``
+refuse such a size with a ``ValueError`` that names both grids, before any
+launch (``check_fused_grid``). D0-D6 at their published sizes pass.
 The TPU-only batch fence ``FUSED_MAX_BATCH`` guards a Mosaic fault and is
 not ported.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,17 +47,58 @@ def _bn(x: torch.Tensor, affine, dtype: torch.dtype) -> torch.Tensor:
                          out=torch.empty_like(x, dtype=dtype))
 
 
+def _conv_out(n: int, conv) -> int:
+    lo, hi = conv.pad
+    return (n + lo + hi - conv.weight.shape[-1]) // conv.stride + 1
+
+
+def stage_grids(backbone: EfficientNetFeatures, h: int, w: int,
+                fused: bool) -> List[Tuple[int, int]]:
+    """The (H, W) of the 7 stage outputs for an (h, w) input, by shape
+    arithmetic alone: the module backbone's (each conv's fixed padding), or
+    with ``fused`` the fused path's, whose expanded blocks pad for the
+    actual size."""
+    sizes = [_conv_out(n, backbone._conv_stem) for n in (h, w)]
+    grids = []
+    blocks = iter(backbone._blocks)
+    for repeats in backbone.stage_repeats:
+        for _ in range(repeats):
+            block = next(blocks)
+            conv = block._depthwise_conv
+            if fused and block.block_args.expand_ratio != 1:
+                sizes = [-(-n // conv.stride) for n in sizes]
+            else:
+                sizes = [_conv_out(n, conv) for n in sizes]
+        grids.append((sizes[0], sizes[1]))
+    return grids
+
+
+def check_fused_grid(backbone: EfficientNetFeatures, h: int, w: int) -> None:
+    """Raise ``ValueError`` where the fused path's grid for an (h, w) input
+    differs from the module backbone's at any stage (whose last 5 are the
+    detector's pyramid, ``pyramid_shapes_for_model``)."""
+    fused = stage_grids(backbone, h, w, True)
+    module = stage_grids(backbone, h, w, False)
+    if fused != module:
+        raise ValueError(
+            f"the fused backbone's pyramid {tuple(fused[-5:])} differs from "
+            f"the model's {tuple(module[-5:])} at input size {(h, w)}: the "
+            "fused serving path requires even input sizes at every stride-2 "
+            "block (the published D0-D6 sizes); serve this size with "
+            "fused_backbone=False")
+
+
 @torch.no_grad()
 def fused_backbone_forward(backbone: EfficientNetFeatures,
                            images: torch.Tensor,
                            dtype: torch.dtype = torch.bfloat16
                            ) -> List[torch.Tensor]:
-    """images (B, H, W, 3), H and W even -> the 7 stage outputs, NCHW in
+    """images (B, H, W, 3) -> the 7 stage outputs, NCHW in
     ``channels_last`` memory and ``dtype``, matching ``backbone`` in eval
-    (within bf16 rounding where it also runs bf16)."""
-    if images.shape[1] % 2 or images.shape[2] % 2:
-        raise ValueError("the fused serving path requires even input sizes, "
-                         f"got {tuple(images.shape[1:3])}")
+    (within bf16 rounding where it also runs bf16). Raises before any
+    launch where the fused grid is not the module backbone's
+    (``check_fused_grid``)."""
+    check_fused_grid(backbone, images.shape[1], images.shape[2])
     x = images.permute(0, 3, 1, 2).to(dtype).contiguous(
         memory_format=torch.channels_last)
     affine = fold_bn_affines([m for m in backbone.modules()

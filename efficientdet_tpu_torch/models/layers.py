@@ -1,6 +1,7 @@
 """Shared building blocks: SAME-padded conv, BatchNorm (frozen, train and
 sync modes, with the global batch's statistics under data parallelism),
-swish, drop-connect, resizes.
+the weight-standardized conv and the norm registry, swish, drop-connect,
+resizes.
 
 Counterpart of ``efficientdet_tpu/models/layers.py``. Tensors are logical
 NCHW in ``channels_last`` memory. Parameters stay float32, as the JAX
@@ -221,31 +222,115 @@ def drop_connect(x: torch.Tensor, rate: float,
     return x / keep * torch.floor(keep + u)
 
 
+def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour x2 upsample."""
+    return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+    """2x2/2 VALID max pool."""
+    return F.max_pool2d(x, 2)
+
+
+def max_pool_1x1_stride2(x: torch.Tensor) -> torch.Tensor:
+    """Stride-2 subsample: the reference's ``F.max_pool2d(x, 1, 2)``."""
+    return x[:, :, ::2, ::2]
+
+
+def resize_nearest(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Nearest resize to (h, w) by ``jax.image.resize(..., "nearest")``'s
+    rule: output pixel i reads input pixel ``floor((i + 0.5) * in / out)``,
+    which is torch's ``nearest-exact`` (``nearest`` floors ``i * in / out``
+    and picks other pixels beyond 2x). Its gradient sums each output
+    pixel's gradient into the pixel it read, as ``jax.grad`` does."""
+    return F.interpolate(x, size=(h, w), mode="nearest-exact")
+
+
 def upsample_nearest_to(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """Nearest upsample of a coarser level to an exact (h, w) target: exact
-    2x, or 2x then a crop to 2H-1 / 2W-1. Larger targets, which only the
-    backbone's nominal-size padding quirk at off-spec input sizes can give,
-    need ``jax.image.resize``'s nearest rule and are not ported yet."""
+    2x; 2x then a crop where the target is at most 2x (2H-1); otherwise a
+    nearest resize (``resize_nearest``). The last is what the backbone's
+    nominal-size padding gives at input sizes that are not multiples of 128:
+    D7 at 1636 px has a 204/102/51/25/12 pyramid, so 25 <- 12 and 51 <- 25."""
     hh, ww = 2 * x.shape[2], 2 * x.shape[3]
-    if h > hh or w > ww:
-        raise NotImplementedError(
-            f"nearest resize {tuple(x.shape[2:])} -> {(h, w)} beyond 2x")
-    up = F.interpolate(x, scale_factor=2, mode="nearest")
-    return up if (h, w) == (hh, ww) else up[:, :, :h, :w]
+    if (h, w) == (hh, ww):
+        return upsample_nearest_2x(x)
+    if h <= hh and w <= ww:
+        return upsample_nearest_2x(x)[:, :, :h, :w]
+    return resize_nearest(x, h, w)
 
 
 def max_pool_2x2_to(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """2x2/2 max pool of a finer level to an exact (h, w) target: the floor
-    (VALID) size, or a ceil size, whose window at the bottom/right edge sees
-    only the pixels inside (the -inf padding of the JAX helper). Other
-    targets need ``jax.image.resize`` after the pool and are not ported yet."""
+    (VALID) size; a ceil size, whose window at the bottom/right edge sees
+    only the pixels inside (the -inf padding of the JAX helper); otherwise
+    the VALID pool, then a nearest resize to the target (D7 at 1636 px:
+    25 from 51, 12 from 25)."""
     if (h, w) == (x.shape[2] // 2, x.shape[3] // 2):
-        return F.max_pool2d(x, 2)
+        return max_pool_2x2(x)
     pad_h, pad_w = 2 * h - x.shape[2], 2 * w - x.shape[3]
-    if not (0 <= pad_h <= 1 and 0 <= pad_w <= 1):
-        raise NotImplementedError(
-            f"max pool {tuple(x.shape[2:])} -> {(h, w)} beyond 2x2")
-    return F.max_pool2d(x, 2, ceil_mode=True)
+    if 0 <= pad_h <= 1 and 0 <= pad_w <= 1:
+        return F.max_pool2d(x, 2, ceil_mode=True)
+    return resize_nearest(max_pool_2x2(x), h, w)
+
+
+class ConvWS(nn.Module):
+    """Weight-standardized conv (the reference's ConvWS2d): each output
+    channel's kernel is standardized over (in, kh, kw), ``(w - mean) /
+    (std + eps)`` with the population std, in float32, before the conv,
+    which runs in the input's dtype. Parameters ``weight`` (OIHW) and
+    ``bias``; symmetric ``torch_padding``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, torch_padding: int = 0, bias: bool = True,
+                 eps: float = 1e-5, device=None):
+        super().__init__()
+        device = default_device(device)
+        self.stride = stride
+        self.padding = torch_padding
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(
+            out_channels, in_channels, kernel_size, kernel_size,
+            device=device))
+        self.bias = (nn.Parameter(torch.zeros(out_channels, device=device))
+                     if bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight
+        mean = w.mean(dim=(1, 2, 3), keepdim=True)
+        std = w.std(dim=(1, 2, 3), keepdim=True, correction=0)
+        w = (w - mean) / (std + self.eps)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, w.to(x.dtype), bias, self.stride, self.padding)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """He-normal fan-out kernel, zero bias, as the JAX package's."""
+        he_normal_fan_out_(self.weight, generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+
+def build_norm(norm_type: Optional[str], num_features: int, *,
+               momentum: float = 0.99, epsilon: float = 1e-5,
+               num_groups: int = 32, device=None) -> nn.Module:
+    """The norm registry (the reference's ``norm_cfg``): ``'BN'`` is a
+    ``train``-mode ``BatchNorm``, ``'SyncBN'`` a ``sync``-mode one (which
+    refuses to train, ``SYNC_REFUSAL``), ``'GN'`` ``nn.GroupNorm``, None the
+    identity; anything else raises ``KeyError``. ``momentum`` is flax's
+    (0.99 keeps 99% of the running statistics), as in the JAX signature;
+    ``epsilon`` defaults to the registry's 1e-5."""
+    if norm_type is None:
+        return nn.Identity()
+    device = default_device(device)
+    if norm_type in ("BN", "SyncBN"):
+        return BatchNorm(num_features, eps=epsilon,
+                         momentum=round(1.0 - momentum, 12),
+                         mode="sync" if norm_type == "SyncBN" else "train",
+                         device=device)
+    if norm_type == "GN":
+        return nn.GroupNorm(num_groups, num_features, eps=epsilon,
+                            device=device)
+    raise KeyError(f"Unrecognized norm type {norm_type}")
 
 
 # ---------------------------------------------------------------- initializers

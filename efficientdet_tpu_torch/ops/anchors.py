@@ -84,3 +84,14 @@ def anchors_for_image_size(
     shapes = tuple(feature_shapes(image_size, pyramid_levels))
     return anchors_for_feature_shapes(shapes, tuple(pyramid_levels),
                                       tuple(ratios), tuple(scales))
+
+
+def num_anchors_for_image_size(
+        image_size: int,
+        pyramid_levels: Sequence[int] = DEFAULT_PYRAMID_LEVELS,
+        anchors_per_cell: int = 9) -> int:
+    """The anchor count of the ceil pyramid; at input sizes that are not
+    multiples of 128 the model's real grids are smaller
+    (``models.detector.pyramid_shapes_for_model``)."""
+    return sum(h * w * anchors_per_cell
+               for h, w in feature_shapes(image_size, pyramid_levels))

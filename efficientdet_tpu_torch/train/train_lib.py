@@ -36,7 +36,7 @@ from ..config import DetectorConfig
 from ..models.detector import (EfficientDet, anchor_levels_for_model,
                                detection_loss_from_level_logits,
                                postprocess_from_scores)
-from ..models.fused_serving import fused_backbone_forward
+from ..models.fused_serving import check_fused_grid, fused_backbone_forward
 from ..ops.nms import Detections
 
 # ImageNet statistics of efficientdet_tpu/data/transforms.py.
@@ -275,8 +275,12 @@ def make_eval_step(model: EfficientDet, cfg: DetectorConfig,
 
     ``fused_backbone=True`` runs the backbone through the fused MBConv kernel
     (``models/fused_serving.py``), reading the same weights; it needs frozen
-    BN (eval) and an even input size."""
+    BN (eval), and raises ``ValueError`` here, naming both grids, where the
+    fused path's pyramid at ``cfg.input_size`` is not the model's
+    (``check_fused_grid``: D7 at 1636 px, or D0 at 164 px)."""
     cfg = cfg.resolve()
+    if fused_backbone:
+        check_fused_grid(model.backbone, cfg.input_size, cfg.input_size)
     modules = list(model.modules())
 
     @torch.inference_mode()

@@ -9,13 +9,16 @@ between the reference state_dict keys (which are the port's) and flax tree
 paths: torch conv weights are OIHW, flax kernels HWIO (transpose
 (2, 3, 1, 0) and back); BatchNorm weight/bias/running_mean/running_var map
 to params scale/bias and batch_stats mean/var. Both directions are strict:
-every mapped leaf must match in shape.
+every mapped leaf must match in shape. The other modules of the JAX
+package that carry weights (the standalone BiFPN with its extra convs, the
+alternative subnets, the classifier, the weight-standardized conv and the
+norms) have key maps of their own for ``import_state``/``export_state``.
 """
 
 from __future__ import annotations
 
 import argparse
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Callable, Dict, Mapping, Tuple
 
 import numpy as np
 
@@ -110,6 +113,10 @@ def _map_detector_key(key: str):
                 leaf, fn = _conv_leaf(parts[7])
                 return ("params", ("neck", f"bifpn_{s}",
                                    f"fuse_conv_{parts[4]}", "conv", leaf), fn)
+        if parts[1] == "fpn_convs":
+            leaf, fn = _conv_leaf(parts[4])
+            return ("params",
+                    ("neck", f"extra_conv_{parts[2]}", "conv", leaf), fn)
     if top == "bbox_head":
         group = parts[1]
         if group in ("cls_convs", "reg_convs"):
@@ -122,12 +129,77 @@ def _map_detector_key(key: str):
     raise KeyError(f"unrecognized detector key: {key}")
 
 
-def import_efficientdet(state_dict: Mapping[str, Any], variables: Tree
-                        ) -> Tree:
-    """Load a reference EfficientDet state_dict into a mutable variables
-    tree {'params', 'batch_stats'} of numpy arrays, in place; returns it."""
+def _map_bifpn_key(key: str):
+    """A standalone ``BiFPN``'s key -> (collection, path, fn), the JAX
+    module's tree (``lateral_conv_{i}``, ``bifpn_{s}``, ``extra_conv_{i}``)."""
+    coll, path, fn = _map_detector_key("neck." + key)
+    return coll, path[1:], fn
+
+
+def _map_subnet_key(key: str):
+    """``RegressionSubnet``/``ClassificationSubnet``: ``conv1``..``conv4``
+    and ``output``, each a flax ``ConvSame``."""
+    name, leaf = key.split(".")
+    leaf, fn = _conv_leaf(leaf)
+    return ("params", (name, "conv", leaf), fn)
+
+
+def _dense_kernel(x) -> np.ndarray:
+    return _t(x).T
+
+
+def _map_classifier_key(key: str):
+    """``EfficientNetClassifier``: the backbone under ``features``, then
+    ``conv_head``, ``bn1`` and the dense ``fc`` (torch (out, in), flax
+    (in, out))."""
+    parts = key.split(".")
+    if parts[0] == "features":
+        coll, path, fn = _map_backbone_key(".".join(parts[1:]))
+        return coll, ("features",) + path, fn
+    if key == "conv_head.weight":
+        return ("params", ("conv_head", "conv", "kernel"), _conv_kernel)
+    if parts[0] == "bn1":
+        coll, leaf = _BN_LEAVES[parts[1]]
+        return (coll, ("bn1", "bn", leaf), _t)
+    if key == "fc.weight":
+        return ("params", ("fc", "kernel"), _dense_kernel)
+    if key == "fc.bias":
+        return ("params", ("fc", "bias"), _t)
+    raise KeyError(f"unrecognized classifier key: {key}")
+
+
+def _map_conv_ws_key(key: str):
+    """``ConvWS``: flax's ``kernel`` (HWIO) and ``bias`` at the module's
+    top."""
+    leaf, fn = _conv_leaf(key)
+    return ("params", (leaf,), fn)
+
+
+def _map_batch_norm_key(key: str):
+    """A standalone ``BatchNorm`` (the registry's ``'BN'``/``'SyncBN'``):
+    the flax ``BatchNorm`` wraps its ``nn.BatchNorm`` as ``bn``."""
+    coll, leaf = _BN_LEAVES[key]
+    return (coll, ("bn", leaf), _t)
+
+
+def _map_group_norm_key(key: str):
+    """``nn.GroupNorm`` (the registry's ``'GN'``): flax's scale and bias."""
+    return ("params", ({"weight": "scale", "bias": "bias"}[key],), _t)
+
+
+# Inverse layouts, flax -> torch.
+_TO_TORCH = {_conv_kernel: lambda v: v.transpose(3, 2, 0, 1),
+             _dense_kernel: lambda v: v.T}
+
+
+def import_state(state_dict: Mapping[str, Any], variables: Tree,
+                 key_map: Callable = _map_detector_key) -> Tree:
+    """Load a state_dict into a mutable variables tree {'params',
+    'batch_stats'} of numpy arrays in place, each key through ``key_map``
+    (key -> (collection, path, layout function), or None to skip); returns
+    the tree."""
     for key, value in state_dict.items():
-        mapped = _map_detector_key(key)
+        mapped = key_map(key)
         if mapped is None:
             continue
         coll, path, fn = mapped
@@ -135,33 +207,45 @@ def import_efficientdet(state_dict: Mapping[str, Any], variables: Tree
     return variables
 
 
-def export_efficientdet(variables: Mapping[str, Any],
-                        template: Mapping[str, Any]) -> Dict[str, Any]:
-    """A reference EfficientDet state_dict filled from a variables tree.
+def export_state(variables: Mapping[str, Any], template: Mapping[str, Any],
+                 key_map: Callable = _map_detector_key) -> Dict[str, Any]:
+    """A state_dict filled from a variables tree through ``key_map``.
 
     ``template`` is a state_dict whose keys and shapes are the schema (the
-    port's model's own). Keys without a flax leaf (BatchNorm's
-    ``num_batches_tracked``, the unused classifier head) keep their template
-    values. Raises where a mapped leaf's shape disagrees."""
+    port's module's own). Keys without a flax leaf (BatchNorm's
+    ``num_batches_tracked``, the detector's unused classifier head) keep
+    their template values. Raises where a mapped leaf's shape disagrees."""
     import torch
 
     out: Dict[str, Any] = {}
     for key, tensor in template.items():
         mapped = (None if key.endswith("num_batches_tracked")
-                  else _map_detector_key(key))
+                  else key_map(key))
         if mapped is None:
             out[key] = tensor.clone()
             continue
         coll, path, fn = mapped
-        value = _get(variables[coll], path)
-        if fn is _conv_kernel:  # HWIO -> OIHW
-            value = value.transpose(3, 2, 0, 1)
+        value = _TO_TORCH.get(fn, lambda v: v)(_get(variables[coll], path))
         if tuple(value.shape) != tuple(tensor.shape):
             raise ValueError(
                 f"shape mismatch exporting {key}: flax {tuple(value.shape)} "
                 f"vs torch {tuple(tensor.shape)}")
         out[key] = torch.from_numpy(np.ascontiguousarray(value))
     return out
+
+
+def import_efficientdet(state_dict: Mapping[str, Any], variables: Tree
+                        ) -> Tree:
+    """Load a reference EfficientDet state_dict into a mutable variables
+    tree {'params', 'batch_stats'} of numpy arrays, in place; returns it."""
+    return import_state(state_dict, variables, _map_detector_key)
+
+
+def export_efficientdet(variables: Mapping[str, Any],
+                        template: Mapping[str, Any]) -> Dict[str, Any]:
+    """A reference EfficientDet state_dict filled from a variables tree;
+    ``template`` gives the keys and shapes (``export_state``)."""
+    return export_state(variables, template, _map_detector_key)
 
 
 def import_efficientnet(state_dict: Mapping[str, Any], model) -> Any:

@@ -135,6 +135,78 @@ def test_small_serving_step_launches_kernels(cuda):
     assert torch.isfinite(det.boxes).all()
 
 
+D7_NARROW = dict(SMALL, network="efficientdet-d7", input_size=1636)
+
+
+def test_d7_geometry_serves_on_the_card(cuda):
+    """D7 at 1636 px (B6 backbone, pyramid 204/102/51/25/12) at a narrow
+    neck and head: the fusion path launches the kernels at the exact-2x
+    nodes only (2 top-down, 2 bottom-up per module), one NMS per step, and
+    gives the plain path's f32 scores within 1e-5."""
+    cfg = DetectorConfig(**D7_NARROW)
+    models = [EfficientDet(cfg, use_fusion_kernels=fused, device=cuda,
+                           generator=torch.Generator().manual_seed(0))
+              .eval().to(memory_format=torch.channels_last)
+              for fused in (False, True)]
+    from chip_smoke import path_launches
+    per_step = path_launches(models[1], "fusion")
+    assert (per_step["fuse_topdown"], per_step["fuse_bottomup"]) == (2, 2)
+    images = torch.randint(0, 256, (1, 1636, 1636, 3), dtype=torch.uint8,
+                           device=cuda)
+    counts = (nms_select.launches, fusion.fuse_topdown.launches,
+              fusion.fuse_bottomup.launches)
+    det = make_eval_step(models[1], cfg)(images)
+    torch.cuda.synchronize()
+    assert (nms_select.launches - counts[0],
+            fusion.fuse_topdown.launches - counts[1],
+            fusion.fuse_bottomup.launches - counts[2]) == (1, 2, 2)
+    assert det.scores.shape == (1, 100) and torch.isfinite(det.boxes).all()
+    from efficientdet_tpu_torch.train import maybe_normalize_images
+    with torch.inference_mode():
+        x = maybe_normalize_images(images)
+        plain, fused = (m.serving_forward(x)[0] for m in models)
+    assert (plain - fused).abs().max().item() <= 1e-5
+
+
+def test_batched_nms_launches_once_and_matches_mask(cuda):
+    """``batched_nms(method='select')`` on the card: one kernel launch per
+    call, equal to ``method='mask'`` on the CPU for the same inputs."""
+    from efficientdet_tpu_torch.ops import batched_nms
+    gen = torch.Generator().manual_seed(3)
+    probs = torch.rand(2, 500, 6, generator=gen)
+    xy = torch.rand(2, 500, 2, generator=gen) * 80
+    boxes = torch.cat([xy, xy + torch.rand(2, 500, 2, generator=gen) * 40
+                       + 1], -1)
+    before = nms_select.launches
+    got = batched_nms(probs.to(cuda), boxes.to(cuda), 0.05, 0.5, 200, 30)
+    torch.cuda.synchronize()
+    assert nms_select.launches - before == 1
+    want = batched_nms(probs, boxes, 0.05, 0.5, 200, 30, method="mask")
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert int(want.valid.sum()) > 0
+
+
+def test_fused_backbone_refuses_before_any_launch(cuda):
+    """Where the fused grid is not the model's (D7 at 1636 px; 164 px), the
+    fused eval step and ``fused_backbone_forward`` raise ``ValueError``
+    naming both grids, and no kernel has been launched."""
+    from efficientdet_tpu_torch import fused_backbone_forward
+    cfg = DetectorConfig(**D7_NARROW)
+    model = EfficientDet(cfg, device=cuda).eval()
+    counters = (nms_select, fusion.fuse_topdown, fusion.fuse_bottomup,
+                mbconv_kernel.fused_expand_dw_flat,
+                mbconv_kernel.fused_expand_dw)
+    before = [fn.launches for fn in counters]
+    with pytest.raises(ValueError, match="differs from the model's"):
+        make_eval_step(model, cfg, fused_backbone=True)
+    with pytest.raises(ValueError, match="differs from the model's"):
+        fused_backbone_forward(model.backbone, torch.zeros(
+            1, 164, 164, 3, device=cuda), torch.bfloat16)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in counters] == before
+
+
 def _mbconv_args(device, b=2, h=12, w=10, cin=16, ce=96, k=3, seed=0):
     gen = torch.Generator().manual_seed(seed)
     args = [torch.randn(b, h, w, cin, generator=gen),
@@ -177,8 +249,9 @@ def test_mbconv_kernel_counts_and_matches_plain(cuda, impl, k, s, dtype,
     """One launch per call at a small odd-sized map with Ce = 6 Cin (3 to
     24 channel tiles). float32 (the CUDA-core kernel) within 1e-5 of the
     plain version; bfloat16 (the tensor-core kernel, at Cin padded to 16,
-    32, 48, 112 and 192) within chip_smoke.py's limits, at most 1 ulp with
-    at most 1e-5 of the elements off, and se_mean within 1e-3."""
+    32, 48, 112 and 192) within chip_smoke.py's limits of the plain version
+    with the expand summed in k order, at most 1 ulp with at most 1e-5 of
+    the elements off, and se_mean within 1e-3."""
     from chip_smoke import bf16_agreement
     kernel, plain = MBCONV[impl]
     x, *weights = _mbconv_args(cuda, h=13, w=11, cin=cin, ce=6 * cin, k=k)
@@ -187,7 +260,8 @@ def test_mbconv_kernel_counts_and_matches_plain(cuda, impl, k, s, dtype,
     z, se = kernel(x, *weights, stride=s)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
-    zp, sep = plain(x, *weights, stride=s)
+    zp, sep = plain(x, *weights, stride=s,
+                    sequential=dtype == torch.bfloat16)
     assert z.shape == zp.shape == (2, -(-13 // s), -(-11 // s), 6 * cin)
     assert z.dtype == dtype and se.dtype == torch.float32
     if dtype == torch.float32:
@@ -197,6 +271,24 @@ def test_mbconv_kernel_counts_and_matches_plain(cuda, impl, k, s, dtype,
         max_ulp, off, ok = bf16_agreement(z, zp)
         assert ok, f"{max_ulp} ulp, {off} of {z.numel()} elements off"
         assert bool(((se - sep).abs() <= 1e-3 * sep.abs() + 1e-5).all())
+
+
+@pytest.mark.parametrize("shape", [(384, 2304, 3, 1, 7),
+                                   (448, 2688, 3, 1, 8),
+                                   (512, 3072, 3, 1, 10),
+                                   (576, 3456, 3, 1, 11)])
+def test_mbconv_bf16_kernel_equals_sequential_plain(cuda, shape):
+    """At the last blocks of efficientnet-b3..b6 at D3..D6's sizes, B = 1,
+    where a matmul's order of sums rounded some y to the other bf16
+    neighbour, the bf16 kernel's z equals the plain version's with the
+    expand summed in k order."""
+    from chip_smoke import mbconv_inputs
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x, *w = mbconv_inputs(torch, gen, 1, shape, torch.bfloat16)
+    z, _ = mbconv_kernel.fused_expand_dw_flat(x, *w, stride=1)
+    want, _ = mbconv_kernel.fused_expand_dw_flat_plain(x, *w, stride=1,
+                                                       sequential=True)
+    assert torch.equal(z, want)
 
 
 def test_small_fused_backbone_step_launches_kernel(cuda):

@@ -104,6 +104,22 @@ def test_plain_matches_pallas_f32(h, w, cin, ce, k, s, impl):
                                atol=2e-5)
 
 
+@pytest.mark.parametrize("impl", ["v1", "flat"])
+@pytest.mark.parametrize("h,w,cin,ce,k,s", SHAPES[:3])
+def test_sequential_plain_matches_pallas_f32(h, w, cin, ce, k, s, impl):
+    """The plain version with the expand summed in k order (the card's
+    reference for the bf16 kernel) computes the same function: float32
+    within 2e-5 of the Pallas kernel and of the one-matmul plain version."""
+    jax_fn, plain, _ = PAIRS[impl]
+    args = _inputs(h, w, cin, ce, k, seed=3)
+    z, se = plain(*map(torch.from_numpy, args), stride=s, sequential=True)
+    zm, sem = plain(*map(torch.from_numpy, args), stride=s)
+    zr, ser = jax_fn(*map(jnp.asarray, args), stride=s, interpret=True)
+    for got, want in ((z, zr), (se, ser), (z, zm), (se, sem)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                                   atol=2e-5)
+
+
 def _bf16_ulp(x):
     _, exp = np.frexp(np.abs(x))
     return np.ldexp(1.0, exp - 8)
@@ -250,6 +266,28 @@ def test_tile_plan_covers_output_once(shape, dtype):
     assert plan.patch_h == (plan.tile_h - 1) * stride + k
     assert plan.patch_w == (plan.tile_w - 1) * stride + k
     assert ce % plan.channel_tile == 0
+
+
+def _variant_shapes():
+    """The distinct block shapes of efficientnet-b1..b6 at D1..D6's
+    published sizes, which chip_smoke.py's variants phase launches."""
+    import chip_smoke
+    return list(chip_smoke.d1_d6_mbconv_shapes())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", _variant_shapes(), ids=str)
+def test_tile_plan_at_d1_d6_shapes(shape, dtype):
+    """The plan of every D1..D6 block fits a block's shared memory, keeps
+    the bf16 row stride's bank rule and covers its output once. (Two bf16
+    blocks per SM, which D0's plans keep, do not fit at the 5 x 5 stride-2
+    blocks with Cin >= 88.)"""
+    plan = mk.tile_plan(*shape, dtype)
+    assert plan.smem_bytes <= 232448
+    if dtype == torch.bfloat16:
+        assert plan.row_stride >= plan.patch_w * 2 * plan.channel_tile
+        assert (plan.stride * plan.row_stride) % 128 == 32
+    test_tile_plan_covers_output_once(shape, dtype)
 
 
 @pytest.mark.parametrize("shape", KERNEL_SHAPES)

@@ -111,11 +111,16 @@ def test_max_pool_2x2_to_matches(big, target):
 
 
 def test_resize_beyond_2x_not_ported():
-    x = torch.zeros(1, 3, 4, 4)
-    with pytest.raises(NotImplementedError):
-        pt_layers.upsample_nearest_to(x, 9, 9)
-    with pytest.raises(NotImplementedError):
-        pt_layers.max_pool_2x2_to(x, 1, 1)
+    """The two targets this test once saw refused are ported: a nearest
+    upsample beyond 2x and a pool then a nearest resize, both exactly
+    JAX's (``tests/test_torch_port_geometry.py`` holds every branch and
+    its gradient)."""
+    x = np.random.RandomState(4).randn(1, 4, 4, 3).astype(np.float32)
+    for fn, target in (("upsample_nearest_to", (9, 9)),
+                       ("max_pool_2x2_to", (1, 1))):
+        got = getattr(pt_layers, fn)(_nchw(x), *target)
+        want = getattr(jax_layers, fn)(jnp.asarray(x), *target)
+        np.testing.assert_array_equal(_nhwc(got), np.asarray(want))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

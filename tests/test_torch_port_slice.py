@@ -291,6 +291,25 @@ for fusion, fused_backbone in ((False, False), (True, False), (False, True)):
         torch.randint(0, 256, (2, 128, 128, 3), dtype=torch.uint8))
     assert det.scores.shape == (2, 100) and bool(det.valid.any())
 
+import dataclasses
+from efficientdet_tpu_torch.models import (
+    BiFPN, ClassificationSubnet, EfficientNetClassifier, RegressionSubnet,
+    anchors_for_config, backbone_feature_channels, postprocess_detections)
+from efficientdet_tpu_torch.models.layers import ConvWS, build_norm
+from efficientdet_tpu_torch.ops import (batched_nms, batched_nms_from_deltas,
+                                        num_anchors_for_image_size)
+odd = dataclasses.replace(cfg, input_size=164)   # a 20/10/5/2/1 pyramid
+model = EfficientDet(odd, device="cpu",
+                     generator=torch.Generator().manual_seed(0)).eval()
+det = make_eval_step(model, odd)(
+    torch.randint(0, 256, (1, 164, 164, 3), dtype=torch.uint8))
+assert det.scores.shape == (1, 100) and bool(det.valid.any())
+try:
+    make_eval_step(model, odd, fused_backbone=True)
+    raise AssertionError("the fused backbone served a grid not the model's")
+except ValueError as e:
+    assert "differs from the model's" in str(e), e
+
 import efficientdet_tpu_torch.ops.losses
 from efficientdet_tpu_torch import (create_train_state, make_loss_step,
                                     make_train_step, to_device)
@@ -379,7 +398,10 @@ def test_port_runs_with_jax_blocked(tmp_path):
     """The port imports neither jax, flax nor the JAX package: with all
     three blocked, and cv2 and matplotlib too, it builds and runs the CPU
     slice, with the fusion kernels and with the fused MBConv backbone,
-    takes a train step from its own data path's batches, ``python -m
+    imports the modules ported last (the probability NMS tail, the BiFPN's
+    extra levels, the subnets, the classifier, ``ConvWS``, ``build_norm``),
+    serves one step at 164 px (odd resize branches) and refuses the fused
+    backbone there, takes a train step from its own data path's batches, ``python -m
     efficientdet_tpu_torch.train`` trains an epoch on the CPU and writes
     its checkpoint, and again with ``--multihost`` in a world-size-1 gloo
     group of a launcher's environment (the same checkpoint, bit for bit),
