@@ -20,7 +20,10 @@ EfficientDet-D1..D7 at their published sizes (``phase_variants``: D7 at
 1636 px serving at batch 1 and 4 on the plain and fusion paths, card
 against CPU, the probability-input NMS tail, the train step at batch 2;
 D1..D6 serving at batch 1 with and without the fused backbone; each
-kernel against its plain version at those shapes), and times
+kernel against its plain version at those shapes), drives the mesh's
+spatial axis (``phase_spatial``: two gloo ranks sharing the card split
+each image's height; D0@512 training and serving and D7@1636 training
+against one process, with each rank's peak memory), and times
 the steps and the kernels: each kernel beside its plain version and its
 bound (the larger of its bytes over the H100's 3.35 TB/s and its operations
 over the peak rate of their type), the fused MBConv kernel also per block
@@ -1306,15 +1309,16 @@ def gloo_rank(rank: int, world: int, tmp: str) -> None:
 
 def gloo_steps(torch, mesh, job):
     """``GLOO_STEPS`` train steps of D0@512 f32, ``train`` BN, from the
-    job's weights on the rank's rows of the job's batch (rows r, r + world,
-    ...: the loader's split), timed each with a synchronize; without a
+    job's weights on the rank's rows of the job's batch (its data rank's
+    rows d, d + N, ...: the loader's split; under the spatial axis its band
+    of their rows, ``put_batch``), timed each with a synchronize; without a
     group, one process on the whole batch. Launch counts from 0; the
     gradient the first step applies (after the all-reduce) is kept."""
     import dataclasses
 
     from efficientdet_tpu_torch import (EfficientDet, create_train_state,
                                         make_train_step)
-    from efficientdet_tpu_torch.parallel import (put_replicated,
+    from efficientdet_tpu_torch.parallel import (put_batch, put_replicated,
                                                  shard_train_step)
     cfg = dataclasses.replace(job["cfg"], bn_mode="train")
     model = EfficientDet(cfg, device=mesh.device)
@@ -1322,8 +1326,8 @@ def gloo_steps(torch, mesh, job):
     model = model.train().to(memory_format=torch.channels_last)
     state = put_replicated(create_train_state(model), mesh)
     step = shard_train_step(make_train_step(model, cfg), mesh)
-    batch = {k: v[mesh.rank::mesh.world_size].to(mesh.device)
-             for k, v in job["batch"].items()}
+    batch = put_batch({k: v[mesh.data_rank::mesh.num_data]
+                       for k, v in job["batch"].items()}, mesh)
     first_grads = []
     apply = state.apply_gradients
 
@@ -1571,6 +1575,295 @@ def phase_parallel(torch, dev, cfg, state, driver_out):
                                                   mesh)
         out["bn_collectives_ms"] = bn_collectives_ms(torch, dev, cfg, state,
                                                      mesh)
+    return out
+
+
+# The spatial axis (phase_spatial): two gloo ranks sharing cuda:0 split each
+# image's height in two (1 data x 2 spatial). D0@512 trains and serves at
+# B = 2; D7@1636 trains at B = 2, frozen BN, without and with remat, in
+# float32 without TF32, so that its losses can be held to one process's
+# within GLOO_LOSS_RTOL (in bf16 a conv on a band rounds apart from one on
+# the whole map, and the losses part by ~1e-3 over D7's depth).
+SPATIAL_SHARDS = 2
+SPATIAL_BATCH = 2
+SPATIAL_EVAL_CALLS = 3
+SPATIAL_D7_STEPS = 2
+# Each rank's peak allocation against one process's: the axis exists to
+# divide D5-D7's activations over the ranks.
+SPATIAL_PEAK_RATIO = 0.7
+# Serving detections, f32 without TF32: tests/test_train.py's tolerances
+# for JAX's spatial serving against one device.
+SPATIAL_SCORE_RTOL, SPATIAL_SCORE_ATOL, SPATIAL_BOX_ATOL = 1e-5, 1e-6, 1e-4
+
+
+def spatial_rank(rank: int, world: int, tmp: str) -> None:
+    """One spatial rank: gloo on cuda:0, shared with the other rank; the
+    job's D0 training and serving and D7 training -> ``tmp/spatial{r}.pt``."""
+    import torch
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from efficientdet_tpu_torch.parallel import create_mesh
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    mesh = create_mesh(1, world, backend="gloo", device="cuda:0",
+                       init_method="file://" + os.path.join(tmp, "srdzv"))
+    try:
+        job = torch.load(os.path.join(tmp, "spatial.pt"), weights_only=False)
+        out = {"train": gloo_steps(torch, mesh, job["d0"]),
+               "serve": spatial_serving(torch, mesh, job["d0"]),
+               "d7": spatial_d7(torch, mesh, job["d7"])}
+    finally:
+        mesh.close()
+    torch.save(out, os.path.join(tmp, f"spatial{rank}.pt"))
+
+
+def spatial_serving(torch, mesh, job):
+    """``shard_eval_step`` on the rank's band of the job's D0@512 images,
+    plain and fusion paths, f32 and bf16, ``SPATIAL_EVAL_CALLS`` calls
+    each after one warm-up call: the first call's detections, the launches
+    of the counted calls and ms per call; and the fused backbone's
+    refusal."""
+    from efficientdet_tpu_torch import make_eval_step
+    from efficientdet_tpu_torch.parallel import put_batch, shard_eval_step
+    cfg = job["cfg"]
+    images = put_batch({"images": job["eval_images"]}, mesh)["images"]
+    out = {}
+    for path in ("plain", "fusion"):
+        for dtype in (torch.float32, torch.bfloat16):
+            model = build_model(torch, cfg, mesh.device, job["state"], dtype,
+                                path == "fusion")
+            step = shard_eval_step(make_eval_step(model, cfg), mesh)
+            det = step(images)
+            counters = reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(SPATIAL_EVAL_CALLS):
+                step(images)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / SPATIAL_EVAL_CALLS
+            out[(path, str(dtype))] = {
+                "det": [t.cpu() for t in det], "ms": ms,
+                "launches": launch_counts(counters)}
+    try:
+        shard_eval_step(make_eval_step(model, cfg, fused_backbone=True),
+                        mesh)(images)
+        out["fused_refusal"] = None
+    except NotImplementedError as e:
+        out["fused_refusal"] = str(e)
+    return out
+
+
+def spatial_d7(torch, mesh, job):
+    """``SPATIAL_D7_STEPS`` train steps of D7@1636 f32 (TF32 off), frozen
+    BN, B = 2, on the rank's band (the whole batch without a group),
+    without and with remat: metrics, ms per step (synchronized), and the
+    peak device memory this process allocated for them above what it held
+    before (model, optimizer state, batch and steps)."""
+    import numpy as np
+
+    from efficientdet_tpu_torch import (EfficientDet, create_train_state,
+                                        make_train_step)
+    from efficientdet_tpu_torch.parallel import put_batch, shard_train_step
+    cfg = job["cfg"]
+    out = {}
+    for remat in (False, True):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(mesh.device)
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+        model = EfficientDet(cfg, remat=remat, device=mesh.device)
+        model.load_state_dict(job["state"], strict=True)
+        model = model.train().to(memory_format=torch.channels_last)
+        state = create_train_state(model)
+        step = shard_train_step(make_train_step(model, cfg), mesh)
+        batch = put_batch(job["batch"], mesh)
+        metrics, ms = [], []
+        for _ in range(SPATIAL_D7_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(state, batch, SEED)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: float(v) for k, v in m.items()})
+        peak = (torch.cuda.max_memory_allocated(mesh.device) - base) / 2 ** 30
+        check(all(np.isfinite(list(m.values())).all() for m in metrics),
+              f"non-finite D7 metrics {metrics}")
+        sums = torch.stack([p.detach().double().sum()
+                            for p in model.parameters()]).cpu()
+        out[f"remat={remat}"] = dict(metrics=metrics, ms=ms, peak_gib=peak,
+                                     param_sums=sums)
+        del model, state, step, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def assert_detections_close(torch, got, want, label: str) -> None:
+    """tests/test_train.py's spatial serving contract: valid slots and
+    classes equal, scores and boxes within ``SPATIAL_*`` tolerances."""
+    scores, classes, boxes, valid = got
+    check(torch.equal(valid, want.valid) and torch.equal(classes,
+                                                         want.classes),
+          f"{label}: valid slots or classes differ")
+    check(bool(torch.allclose(scores, want.scores, rtol=SPATIAL_SCORE_RTOL,
+                              atol=SPATIAL_SCORE_ATOL)),
+          f"{label}: scores differ by "
+          f"{(scores - want.scores).abs().max().item():.3g}")
+    check(bool(torch.allclose(boxes, want.boxes, rtol=1e-5,
+                              atol=SPATIAL_BOX_ATOL)),
+          f"{label}: boxes differ by "
+          f"{(boxes - want.boxes).abs().max().item():.3g}")
+
+
+def phase_spatial(torch, dev, cfg, state, d7_job):
+    """The mesh's spatial axis (``efficientdet_tpu_torch.parallel.spatial``)
+    as two spawned gloo ranks sharing cuda:0, 1 data x 2 spatial, each
+    holding half of every activation's rows, against one process in this
+    call:
+
+    (i) D0@512 f32 without TF32, ``train`` BN, B = 2, ``GLOO_STEPS`` steps:
+        the ranks' metrics and weights equal, and within
+        ``GLOO_GRAD_RTOL``, ``GLOO_LOSS_RTOL``, ``GLOO_PARAM_ATOL`` of one
+        process on the same batch;
+    (ii) D0@512 serving at B = 2, plain and fusion paths, f32 and bf16:
+        every rank gets the batch's detections, well formed, the f32 ones
+        within tests/test_train.py's tolerances of one process's
+        ``make_eval_step``; kernel A once per data rank and step (spatial
+        rank 0 runs the NMS tail), B and C on both ranks at one process's
+        8 and 6 a step (at 512 px and S = 2 every band edge is even), E
+        refused;
+    (iii) D7@1636 f32, frozen BN, B = 2, without and with remat: the
+        losses within ``GLOO_LOSS_RTOL`` of one process's, the ranks'
+        metrics and weights equal, each rank's peak allocation at most
+        ``SPATIAL_PEAK_RATIO`` of one process's, ms per step.
+
+    No speed-up is claimed: the two ranks share one card and exchange
+    through the host. Returns the ranks' summed launches, the timings and
+    the peaks."""
+    import torch.multiprocessing as mp
+
+    from efficientdet_tpu_torch import make_eval_step
+    from efficientdet_tpu_torch.parallel import Mesh
+    t_phase = time.perf_counter()
+    one = Mesh(0, 1, 0, dev)
+    d0 = {"cfg": cfg, "state": {k: v.cpu() for k, v in state.items()},
+          "batch": {k: v.cpu() for k, v in synthetic_batch(
+              torch, dev, SPATIAL_BATCH, SEED + 41).items()},
+          "eval_images": synthetic_batch(torch, dev, SPATIAL_BATCH,
+                                         SEED + 42)["images"].cpu()}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"d0": d0, "d7": d7_job}, os.path.join(tmp, "spatial.pt"))
+        t0 = time.perf_counter()
+        mp.start_processes(spatial_rank, args=(SPATIAL_SHARDS, tmp),
+                           nprocs=SPATIAL_SHARDS, start_method="spawn")
+        seconds = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"spatial{r}.pt"),
+                            weights_only=False)
+                 for r in range(SPATIAL_SHARDS)]
+    out = {"rank_seconds": seconds}
+
+    # (i) D0 training against one process.
+    r0 = ranks[0]["train"]
+    for other in ranks[1:]:
+        check(other["train"]["metrics"] == r0["metrics"]
+              and all(torch.equal(other["train"]["state"][k], v)
+                      for k, v in r0["state"].items()),
+              "spatial ranks' D0 steps differ")
+    ref = gloo_steps(torch, one, d0)
+    gap = compare_steps(torch, r0, ref)
+    check(gap["grad_global"] <= GLOO_GRAD_RTOL
+          and gap["grad_norm"] <= GLOO_GRAD_RTOL
+          and gap["loss"] <= GLOO_LOSS_RTOL
+          and gap["param"] <= GLOO_PARAM_ATOL,
+          f"spatial ranks against one process: {gap}")
+    worst = ", ".join(f"{n} {e:.3g}" for n, e in gap["worst"])
+    log(f"spatial (i) 1 data x {SPATIAL_SHARDS} spatial gloo ranks on "
+        f"cuda:0, D0@512 f32 train BN B={SPATIAL_BATCH}, {GLOO_STEPS} steps "
+        f"({seconds:.1f} s for the ranks' whole job with spawn): ranks "
+        f"equal; against one process: first gradient within "
+        f"{gap['grad_global']:.3g} of the largest of all (of each tensor's "
+        f"own: {worst}), grad norm {gap['grad_norm']:.3g}, losses "
+        f"{gap['loss']:.3g}, weights {gap['param']:.3g}; ms/step ranks "
+        f"{', '.join(f'{t:.1f}' for t in r0['ms'])}, one process "
+        f"{', '.join(f'{t:.1f}' for t in ref['ms'])}")
+    out["train_ms"] = {"ranks": r0["ms"], "one_process": ref["ms"]}
+
+    # (ii) D0 serving: detections, launches per step, the refusal.
+    launches = {}
+    for key, rank0 in ranks[0]["serve"].items():
+        if key == "fused_refusal":
+            continue
+        path, dtype = key
+        for other in ranks[1:]:
+            check(all(torch.equal(a, b) for a, b in
+                      zip(other["serve"][key]["det"], rank0["det"])),
+                  f"spatial ranks' {key} detections differ")
+        valid = check_detections(torch, rank0["det"], SPATIAL_BATCH)
+        per_rank = [r["serve"][key]["launches"] for r in ranks]
+        per_step = {k: [n[k] / SPATIAL_EVAL_CALLS for n in per_rank]
+                    for k in per_rank[0]}
+        fusion = path == "fusion"
+        check(per_step["nms_select"] == [1.0] + [0.0] * (SPATIAL_SHARDS - 1)
+              and per_step["fuse_topdown"] == [8.0 * fusion] * SPATIAL_SHARDS
+              and per_step["fuse_bottomup"] == [6.0 * fusion]
+              * SPATIAL_SHARDS
+              and not any(per_step["fused_expand_dw_flat"])
+              and not any(per_step["fused_expand_dw"]),
+              f"spatial {key} launches per step and rank {per_step}")
+        for n in per_rank:
+            for k, v in n.items():
+                launches[k] = launches.get(k, 0) + v
+        line = (f"spatial (ii) D0@512 {path} {dtype} B={SPATIAL_BATCH}: "
+                f"{valid} valid, launches per step and rank {per_step}, "
+                f"{rank0['ms']:.1f} ms/call")
+        if dtype == str(torch.float32):
+            model = build_model(torch, cfg, dev, state, torch.float32, False)
+            want = make_eval_step(model, cfg)(d0["eval_images"].to(dev))
+            det = [t.to(dev) for t in rank0["det"]]
+            assert_detections_close(torch, det, want, f"spatial {key}")
+            line += (f"; against one process: scores within "
+                     f"{(det[0] - want.scores).abs().max().item():.3g}, "
+                     f"boxes within "
+                     f"{(det[2] - want.boxes).abs().max().item():.3g} px")
+        log(line)
+    for r in ranks:
+        check(r["serve"]["fused_refusal"] is not None
+              and "A17" in r["serve"]["fused_refusal"],
+              "the fused backbone did not refuse the spatial axis")
+    out["launches"] = launches
+
+    # (iii) D7 training: losses, equality, peaks, times.
+    want = spatial_d7(torch, one, d7_job)
+    out["d7"] = {}
+    for mode, rank0 in ranks[0]["d7"].items():
+        for other in ranks[1:]:
+            check(other["d7"][mode]["metrics"] == rank0["metrics"]
+                  and torch.equal(other["d7"][mode]["param_sums"],
+                                  rank0["param_sums"]),
+                  f"spatial ranks' D7 {mode} steps differ")
+        ref = want[mode]
+        rel = max(abs(g[k] - w[k]) / abs(w[k])
+                  for g, w in zip(rank0["metrics"], ref["metrics"])
+                  for k in ("loss", "cls_loss", "reg_loss"))
+        peaks = [r["d7"][mode]["peak_gib"] for r in ranks]
+        ratio = max(peaks) / ref["peak_gib"]
+        check(rel <= GLOO_LOSS_RTOL, f"spatial D7 {mode}: losses differ "
+              f"by {rel:.3g} from one process")
+        check(ratio <= SPATIAL_PEAK_RATIO, f"spatial D7 {mode}: rank peak "
+              f"{max(peaks):.2f} GiB is {ratio:.3f} of one process's "
+              f"{ref['peak_gib']:.2f}")
+        log(f"spatial (iii) D7@1636 f32 frozen BN B={SPATIAL_BATCH} "
+            f"{mode}: losses within {rel:.3g} of one process "
+            f"({[m['loss'] for m in rank0['metrics']]}); peak GiB per rank "
+            f"{', '.join(f'{p:.2f}' for p in peaks)} against one process's "
+            f"{ref['peak_gib']:.2f} (ratio {ratio:.3f}); ms/step ranks "
+            f"{', '.join(f'{t:.1f}' for t in rank0['ms'])}, one process "
+            f"{', '.join(f'{t:.1f}' for t in ref['ms'])}; {card_summary()}")
+        out["d7"][mode] = {"peak_gib": peaks, "one_process_gib":
+                           ref["peak_gib"], "ratio": ratio,
+                           "ms": rank0["ms"], "one_process_ms": ref["ms"],
+                           "loss_rel": rel}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"spatial phase {out['seconds']:.1f} s")
     return out
 
 
@@ -2547,30 +2840,38 @@ def d7_probability_path(torch, dev, cfg, state, counters):
     return out
 
 
-def d7_training(torch, dev, cfg, state, counters):
-    """``make_train_step`` at B = 2, bf16, frozen BN, ``D7_TRAIN_STEPS``
-    steps with and without ``remat``: ms/step, peak memory, finite losses
-    and grad norms; no kernel launches (the fusion kernels are off).
-
-    The BN statistics are calibrated again on the training batch's own
-    images: those of ``state`` come from uniform noise, and over B6's 45
-    blocks the gap between the two kinds of image compounds block by block
+def d7_train_job(torch, dev, cfg, state):
+    """The D7 train step's batch (B = 2) and weights, on the host: the BN
+    statistics are calibrated again on the training batch's own images.
+    Those of ``state`` come from uniform noise, and over B6's 45 blocks
+    the gap between the two kinds of image compounds block by block
     (without this, the synthetic images' deepest features and the loss
     reach ~1e8 at D7@1636)."""
-    import numpy as np
-
-    from efficientdet_tpu_torch import (EfficientDet, create_train_state,
-                                        make_train_step)
+    from efficientdet_tpu_torch import EfficientDet
     from efficientdet_tpu_torch.utils.seeded import calibrate_batchnorm
     batch = synthetic_batch(torch, dev, D7_TRAIN_BATCH, SEED + 32,
                             cfg.input_size)
     model = EfficientDet(cfg, device=dev)
     model.load_state_dict(state, strict=True)
     calibrate_batchnorm(model.eval(), batch["images"])
-    state = model.state_dict()
-    del model
+    return {"cfg": cfg, "batch": {k: v.cpu() for k, v in batch.items()},
+            "state": {k: v.cpu() for k, v in model.state_dict().items()}}
+
+
+def d7_training(torch, dev, cfg, state, counters):
+    """``make_train_step`` at B = 2, bf16, frozen BN, ``D7_TRAIN_STEPS``
+    steps with and without ``remat``, from ``d7_train_job``: ms/step, peak
+    memory, finite losses and grad norms; no kernel launches (the fusion
+    kernels are off). The job goes on to ``phase_spatial`` (``job``)."""
+    import numpy as np
+
+    from efficientdet_tpu_torch import (EfficientDet, create_train_state,
+                                        make_train_step)
+    job = d7_train_job(torch, dev, cfg, state)
+    batch = {k: v.to(dev) for k, v in job["batch"].items()}
+    state = job["state"]
     none = dict.fromkeys(launch_counts(counters), 0)
-    out = {}
+    out = {"job": job}
     for remat in (False, True):
         model = EfficientDet(cfg, dtype=torch.bfloat16, remat=remat,
                              device=dev)
@@ -3171,6 +3472,8 @@ def main() -> int:
                                    args.out if args.profile else None)
     log(f"native phase {time.perf_counter() - t0:.1f} s")
     variants = phase_variants(torch, dev)
+    spatial = phase_spatial(torch, dev, cfg, state,
+                            variants["train"].pop("job"))
     times = phase_kernel_times(torch, dev, nms_sets)
     if args.profile:
         phase_profile(torch, dev, cfg, state, args.out)
@@ -3200,6 +3503,13 @@ def main() -> int:
                    "mbconv_fused":
                    native_launches.get("fused_expand_dw_flat", 0)
                    + native_launches.get("fused_expand_dw", 0)}
+    # Launches over phase_spatial's serving calls, both ranks.
+    spatial_runs = {"nms_select": spatial["launches"]["nms_select"],
+                    "fuse_topdown": spatial["launches"]["fuse_topdown"],
+                    "fuse_bottomup": spatial["launches"]["fuse_bottomup"],
+                    "mbconv_fused":
+                    spatial["launches"]["fused_expand_dw_flat"]
+                    + spatial["launches"]["fused_expand_dw"]}
     # Launches over phase_variants' D1-D7 runs, and the kernels' times
     # and errors at its shapes.
     variant_runs = {"nms_select": variants["launches"]["nms_select"],
@@ -3236,6 +3546,7 @@ def main() -> int:
                  "eval_launches": eval_runs[name],
                  "native_phase_launches": native_runs[name],
                  "parallel_launches": parallel_runs[name],
+                 "spatial_launches": spatial_runs[name],
                  "variants_launches": variant_runs[name],
                  "variants": dict(variants["times"][name],
                                   max_abs_err=variants["errors"][name]),
@@ -3269,6 +3580,13 @@ def main() -> int:
     for mode, t in variants["train"].items():
         log(f"train D7@1636 bf16 B={D7_TRAIN_BATCH} {mode}: "
             f"{t['ms'][-1]:.1f} ms/step, peak {t['peak_gib']:.2f} GiB")
+    for mode, t in spatial["d7"].items():
+        log(f"spatial 1x{SPATIAL_SHARDS} D7@1636 f32 B={SPATIAL_BATCH} "
+            f"{mode}: peak GiB per rank "
+            f"{', '.join(f'{p:.2f}' for p in t['peak_gib'])} against "
+            f"{t['one_process_gib']:.2f} in one process (ratio "
+            f"{t['ratio']:.3f}); ms/step {t['ms'][-1]:.1f} against "
+            f"{t['one_process_ms'][-1]:.1f}")
     gloo_ms = ", ".join(f"{v:.1f}" for v in parallel["gloo"]["ms"])
     log(f"2 gloo ranks on one card, D0@512 f32 train BN, global B="
         f"{GLOO_BATCH}: {gloo_ms} ms/step")

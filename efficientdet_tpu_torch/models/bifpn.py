@@ -25,11 +25,18 @@ whose geometry is exactly 2x runs as one Triton kernel
 (``kernels/fusion.py``), with the math in float32 as in the Pallas kernel;
 any other node, and the top node, runs as plain tensor code. The choice is
 fixed by shape.
+
+The spatial axis (``parallel.spatial``): given the plan, each level is the
+rank's band of its rows; every resize, pool and 3x3 conv fetches the rows
+its band reads from the ranks that hold them. A node of the exact-2x
+geometry fetches the coarser (top-down) or finer (bottom-up) level's rows
+once and takes the kernel where those rows are exactly 2x the band's (an
+even band edge), the plain arithmetic on the same rows elsewhere.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 from torch import nn
@@ -37,7 +44,7 @@ from torch import nn
 from ..device import default_device
 from ..kernels import fusion
 from .layers import (ConvModule, max_pool_1x1_stride2, max_pool_2x2_to,
-                     upsample_nearest_to, xavier_uniform_)
+                     rows_of, upsample_nearest_to, xavier_uniform_)
 
 
 class BiFPNModule(nn.Module):
@@ -57,24 +64,47 @@ class BiFPNModule(nn.Module):
                                      device=device))
             for _ in range(2 * (levels - 1)))
 
-    def _topdown(self, big, small, a, b, weights):
-        h, w = big.shape[2], big.shape[3]
-        if self.use_fusion_kernels and (h, w) == (2 * small.shape[2],
-                                                  2 * small.shape[3]):
-            return fusion.fuse_topdown(big, small, weights, self.eps)
-        return (a * big + b * upsample_nearest_to(small, h, w)) \
-            / (a + b + self.eps)
+    def _topdown(self, big, small, a, b, weights, bands=(None, None)):
+        """``bands``: (big's, small's) ``Band`` under the spatial axis."""
+        big_band, small_band = bands
+        h, w = rows_of(big, big_band), big.shape[3]
+        if self.use_fusion_kernels and (h, w) == (
+                2 * rows_of(small, small_band), 2 * small.shape[3]):
+            if small_band is None:
+                return fusion.fuse_topdown(big, small, weights, self.eps)
+            # The band's rows [lo, hi) read small's [lo/2, hi/2): the kernel
+            # takes them where both ends are even. Both branches fetch
+            # small's rows by the same map, once.
+            lo, hi = small_band.plan.band(h)
+            if lo < hi and lo % 2 == 0 and hi % 2 == 0:
+                return fusion.fuse_topdown(
+                    big, small_band.rows_for_upsample(small, h), weights,
+                    self.eps)
+        up = upsample_nearest_to(small, h, w, small_band)
+        return (a * big + b * up) / (a + b + self.eps)
 
-    def _bottomup(self, cur, lower, skip, a, b, c, weights):
-        h, w = cur.shape[2], cur.shape[3]
-        if self.use_fusion_kernels and (lower.shape[2], lower.shape[3]) == (
-                2 * h, 2 * w):
-            return fusion.fuse_bottomup(cur, lower, skip, weights, self.eps)
-        return (a * cur + b * max_pool_2x2_to(lower, h, w) + c * skip) \
-            / (a + b + c + self.eps)
+    def _bottomup(self, cur, lower, skip, a, b, c, weights,
+                  bands=(None, None)):
+        """``bands``: (cur's, lower's) ``Band`` under the spatial axis."""
+        cur_band, lower_band = bands
+        h, w = rows_of(cur, cur_band), cur.shape[3]
+        if self.use_fusion_kernels and (rows_of(lower, lower_band),
+                                        lower.shape[3]) == (2 * h, 2 * w):
+            if lower_band is None:
+                return fusion.fuse_bottomup(cur, lower, skip, weights,
+                                            self.eps)
+            if cur.shape[2]:  # the band's rows read lower's [2 lo, 2 hi)
+                return fusion.fuse_bottomup(
+                    cur, lower_band.rows_for_pool(lower, h), skip, weights,
+                    self.eps)
+        pooled = max_pool_2x2_to(lower, h, w, lower_band)
+        return (a * cur + b * pooled + c * skip) / (a + b + c + self.eps)
 
-    def forward(self, inputs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    def forward(self, inputs: Sequence[torch.Tensor],
+                bands: Optional[Sequence] = None) -> List[torch.Tensor]:
+        """``bands``: each level's ``Band`` under the spatial axis."""
         L = self.levels
+        bands = bands or [None] * L
         dtype = inputs[0].dtype
         w1 = torch.relu(self.w1)
         w1 = (w1 / (w1.sum(dim=0) + self.eps)).to(dtype)
@@ -91,20 +121,22 @@ class BiFPNModule(nn.Module):
         idx = 0
         for i in range(L - 1, 0, -1):
             fused = self._topdown(path[i - 1], path[i], w1[0, i - 1],
-                                  w1[1, i - 1], rows1[i - 1])
-            path[i - 1] = convs[idx](fused)
+                                  w1[1, i - 1], rows1[i - 1],
+                                  (bands[i - 1], bands[i]))
+            path[i - 1] = convs[idx][0](fused, bands[i - 1])
             idx += 1
         for i in range(0, L - 2):
             fused = self._bottomup(path[i + 1], path[i], skips[i + 1],
-                                   w2[0, i], w2[1, i], w2[2, i], rows2[i])
-            path[i + 1] = convs[idx](fused)
+                                   w2[0, i], w2[1, i], w2[2, i], rows2[i],
+                                   (bands[i + 1], bands[i]))
+            path[i + 1] = convs[idx][0](fused, bands[i + 1])
             idx += 1
         a, b = w1[0, L - 1], w1[1, L - 1]
         top = path[L - 1]
-        fused = (a * top + b * max_pool_2x2_to(path[L - 2], top.shape[2],
-                                               top.shape[3])) \
-            / (a + b + self.eps)
-        path[L - 1] = convs[idx](fused)
+        fused = (a * top + b * max_pool_2x2_to(
+            path[L - 2], rows_of(top, bands[L - 1]), top.shape[3],
+            bands[L - 2])) / (a + b + self.eps)
+        path[L - 1] = convs[idx][0](fused, bands[L - 1])
         return path
 
 
@@ -155,26 +187,35 @@ class BiFPN(nn.Module):
                        device=device)
             for i in range(extra))
 
-    def forward(self, inputs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    def forward(self, inputs: Sequence[torch.Tensor], plan=None
+                ) -> List[torch.Tensor]:
+        """``plan`` (``parallel.spatial.SpatialPlan``): each input is the
+        rank's band of its level's rows, and so is each output."""
         if len(inputs) != len(self.in_channels):
             raise ValueError(f"{len(inputs)} inputs for "
                              f"{len(self.in_channels)} in_channels")
-        laterals = [conv(x) for conv, x in zip(
-            self.lateral_convs, inputs[self.start_level:self.end_level])]
+        band = (lambda i: None) if plan is None else plan.level
+        fused = self.end_level - self.start_level
+        bands = [band(i) for i in range(fused)]
+        laterals = [conv(x, band(i)) for i, (conv, x) in enumerate(zip(
+            self.lateral_convs, inputs[self.start_level:self.end_level]))]
         for module in self.stack_bifpn_convs:
-            laterals = module(laterals)
+            laterals = module(laterals, None if plan is None else bands)
         outs = list(laterals)
         if not self.add_extra_convs:
             for _ in range(self.num_outs - len(laterals)):
-                outs.append(max_pool_1x1_stride2(outs[-1]))
+                outs.append(max_pool_1x1_stride2(outs[-1],
+                                                 band(len(outs) - 1)))
         for i, conv in enumerate(self.fpn_convs):
             if i == 0:
+                # The last fused backbone input has the last fused level's
+                # rows.
                 src = (inputs[self.end_level - 1]
                        if self.extra_convs_on_inputs else outs[-1])
             else:
                 src = (torch.relu(outs[-1]) if self.relu_before_extra_convs
                        else outs[-1])
-            outs.append(conv(src))
+            outs.append(conv(src, band(len(outs) - 1)))
         return outs
 
     def reset_parameters(self, generator: torch.Generator) -> None:

@@ -14,6 +14,12 @@ serving and training), applied to activations. Convert memory layout with
 ``model.to(memory_format=torch.channels_last)``, not the dtype with
 ``model.to(dtype)``. The JAX package's ``train`` flag is the module's
 ``train()`` / ``eval()`` mode; the BatchNorm mode is ``cfg.bn_mode``.
+
+``spatial``: the spatial axis's ``parallel.spatial.SpatialPlan``, which
+``parallel.mesh`` binds for the length of a step (None otherwise). Under
+it the images are the rank's band of rows, every level is its band, the
+training forward gives the band's logits, and the serving forward gathers
+the whole image's outputs from the group.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ class EfficientDet(nn.Module):
         device = default_device(device)
         self.config = cfg
         self.dtype = dtype
+        self.spatial = None
         self.backbone = EfficientNetFeatures(cfg.backbone_name,
                                              bn_mode=cfg.bn_mode, remat=remat,
                                              device=device)
@@ -86,17 +93,21 @@ class EfficientDet(nn.Module):
         return images.permute(0, 3, 1, 2).to(self.dtype).contiguous(
             memory_format=torch.channels_last)
 
-    def extract_features(self, images: torch.Tensor) -> List[torch.Tensor]:
-        """Backbone + neck pyramid P3..P7, NCHW in the compute dtype."""
-        return self.neck(self.backbone(self._nchw(images))[-5:])
+    def extract_features(self, images: torch.Tensor,
+                         generator: Optional[torch.Generator] = None
+                         ) -> List[torch.Tensor]:
+        """Backbone + neck pyramid P3..P7, NCHW in the compute dtype;
+        ``generator`` draws the drop-connect masks (training mode only)."""
+        plan = self.spatial
+        feats = self.backbone(self._nchw(images), generator,
+                              None if plan is None else plan.image())
+        return self.neck(feats[-5:], plan)
 
     def forward(self, images: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        cls_probs, box_deltas = self.bbox_head(self.extract_features(images))
+        cls_probs, box_deltas = self.bbox_head(self.extract_features(images),
+                                               plan=self.spatial)
         return cls_probs.float(), box_deltas.float()
-
-    def _train_pyramid(self, images, generator):
-        return self.neck(self.backbone(self._nchw(images), generator)[-5:])
 
     def train_forward(self, images: torch.Tensor,
                       generator: Optional[torch.Generator] = None
@@ -104,23 +115,24 @@ class EfficientDet(nn.Module):
         """(cls_logits (B, A, C), box_deltas (B, A, 4)), pre-sigmoid, in the
         compute dtype; ``generator`` draws the drop-connect masks (training
         mode only)."""
-        return self.bbox_head(self._train_pyramid(images, generator),
-                              return_logits=True)
+        return self.bbox_head(self.extract_features(images, generator),
+                              return_logits=True, plan=self.spatial)
 
     def train_forward_levels(self, images: torch.Tensor,
                              generator: Optional[torch.Generator] = None):
         """Per-level ``train_forward``: lists [(B, A_l, C)], [(B, A_l, 4)]
         in the compute dtype, unconcatenated, for
         ``detection_loss_from_level_logits``."""
-        return self.bbox_head(self._train_pyramid(images, generator),
-                              return_logits=True, per_level=True)
+        return self.bbox_head(self.extract_features(images, generator),
+                              return_logits=True, per_level=True,
+                              plan=self.spatial)
 
     def serving_forward(self, images: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(scores (B, A) f32, classes (B, A) int32, box_deltas (B, A, 4)
         f32), with the class reduction per level inside the head."""
         return self.bbox_head(self.extract_features(images),
-                              reduce_classes=True)
+                              reduce_classes=True, plan=self.spatial)
 
     def serving_from_features(self, features: Sequence[torch.Tensor]
                               ) -> Tuple[torch.Tensor, torch.Tensor,
@@ -195,13 +207,15 @@ def detection_loss_from_logits(cls_logits: torch.Tensor,
 
 def detection_loss_from_level_logits(cls_levels, reg_levels, anchor_levels,
                                      annotations: torch.Tensor,
-                                     cfg: DetectorConfig
+                                     cfg: DetectorConfig, reduce_sums=None
                                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(cls_loss, reg_loss) from ``train_forward_levels`` outputs: the
-    training objective."""
+    training objective. ``reduce_sums``: as in
+    ``ops.losses.focal_loss_from_level_logits``."""
     return loss_ops.focal_loss_from_level_logits(
         cls_levels, reg_levels, anchor_levels, annotations,
-        alpha=cfg.focal_alpha, gamma=cfg.focal_gamma)
+        alpha=cfg.focal_alpha, gamma=cfg.focal_gamma,
+        reduce_sums=reduce_sums)
 
 
 def postprocess_detections(cls_probs: torch.Tensor, box_deltas: torch.Tensor,

@@ -19,9 +19,15 @@ explicit generator), and the branch's BatchNorms do not move their running
 statistics a second time while it is recomputed.
 
 Data parallelism: ``parallel.shard_train_step`` sets each block's
-``batch_shard`` to (rank, world size) for the length of a step, so the
+``batch_shard`` to (data rank, data width) for the length of a step, so the
 masks are the global batch's draw sliced to the rank's images
-(``layers.drop_connect``).
+(``layers.drop_connect``); every spatial rank of an image draws its mask.
+
+The spatial axis (``parallel.spatial``): given ``band``, the image's band
+of rows, every conv runs on its input's band (the stem and the depthwise
+convs exchange rows with the neighbouring ranks), and the SE mean is the
+global one, its sums added over the spatial group. Under ``remat`` the
+recomputed branch exchanges again, on every rank in the same order.
 """
 
 from __future__ import annotations
@@ -77,24 +83,31 @@ class MBConvBlock(nn.Module):
                         and ba.input_filters == ba.output_filters)
         self.batch_shard = (0, 1)
 
-    def branch(self, x: torch.Tensor) -> torch.Tensor:
-        """Everything but the skip: the part ``remat`` recomputes."""
+    def out_rows(self, rows: int) -> int:
+        return self._depthwise_conv.out_rows(rows)
+
+    def branch(self, x: torch.Tensor, band=None) -> torch.Tensor:
+        """Everything but the skip: the part ``remat`` recomputes. ``band``:
+        x is the rank's band of rows of a ``band.rows``-row input."""
         if self.block_args.expand_ratio != 1:
-            x = swish(self._bn0(self._expand_conv(x)))
-        x = swish(self._bn1(self._depthwise_conv(x)))
+            x = swish(self._bn0(self._expand_conv(x, band)))
+        x = swish(self._bn1(self._depthwise_conv(x, band)))
+        band = band and band.at(self.out_rows(band.rows))
         if self.has_se:
-            s = x.mean(dim=(2, 3), keepdim=True)
+            s = (x.mean(dim=(2, 3), keepdim=True) if band is None
+                 else band.mean(x))
             s = self._se_expand(swish(self._se_reduce(s)))
             x = torch.sigmoid(s) * x
-        return self._bn2(self._project_conv(x))
+        return self._bn2(self._project_conv(x, band))
 
     def forward(self, x: torch.Tensor, remat: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                band=None) -> torch.Tensor:
         if remat and torch.is_grad_enabled():
-            y = checkpoint(self.branch, x, use_reentrant=False,
+            y = checkpoint(self.branch, x, band, use_reentrant=False,
                            context_fn=self._remat_contexts)
         else:
-            y = self.branch(x)
+            y = self.branch(x, band)
         if not self.id_skip:
             return y
         if self.training and self.drop_connect_rate > 0:
@@ -130,6 +143,9 @@ class EfficientNetFeatures(nn.Module):
         device = default_device(device)
         blocks_args, gp = get_model_params(model_name)
         self.remat = remat
+        # The spatial axis's plan while a sharded step runs: the fused
+        # serving path refuses to run under it (``fused_serving``).
+        self.spatial = None
         self.stage_repeats = [b.num_repeat for b in blocks_args]
         self.feature_channels = [b.output_filters for b in blocks_args]
         stem = round_filters(32, gp.width_coefficient, gp.depth_divisor,
@@ -153,15 +169,20 @@ class EfficientNetFeatures(nn.Module):
         self._blocks = nn.ModuleList(blocks)
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None
-                ) -> List[torch.Tensor]:
-        """``generator`` draws the drop-connect masks in training."""
-        x = swish(self._bn0(self._conv_stem(x)))
+                generator: Optional[torch.Generator] = None,
+                band=None) -> List[torch.Tensor]:
+        """``generator`` draws the drop-connect masks in training; ``band``:
+        x is the rank's band of rows of the images (``parallel.spatial``),
+        and each feature is the band of its level."""
+        x = swish(self._bn0(self._conv_stem(x, band)))
+        band = band and band.at(self._conv_stem.out_rows(band.rows))
         features = []
         idx = 0
         for repeats in self.stage_repeats:
             for _ in range(repeats):
-                x = self._blocks[idx](x, self.remat, generator)
+                block = self._blocks[idx]
+                x = block(x, self.remat, generator, band)
+                band = band and band.at(block.out_rows(band.rows))
                 idx += 1
             features.append(x)
         return features

@@ -25,6 +25,10 @@ refuse such a size with a ``ValueError`` that names both grids, before any
 launch (``check_fused_grid``). D0-D6 at their published sizes pass.
 The TPU-only batch fence ``FUSED_MAX_BATCH`` guards a Mosaic fault and is
 not ported.
+
+Under the mesh's spatial axis (the backbone's ``spatial`` bound) both
+refuse (``SPATIAL_REFUSAL``): the kernel reads a whole image and sums its
+SE means over it, where a rank holds a band of rows.
 """
 
 from __future__ import annotations
@@ -73,10 +77,20 @@ def stage_grids(backbone: EfficientNetFeatures, h: int, w: int,
     return grids
 
 
+SPATIAL_REFUSAL = (
+    "the fused MBConv backbone does not run under the spatial axis: its "
+    "kernel reads a whole image and sums the SE means over it, where each "
+    "rank holds a band of rows (ROADMAP A17); serve with "
+    "fused_backbone=False")
+
+
 def check_fused_grid(backbone: EfficientNetFeatures, h: int, w: int) -> None:
     """Raise ``ValueError`` where the fused path's grid for an (h, w) input
     differs from the module backbone's at any stage (whose last 5 are the
-    detector's pyramid, ``pyramid_shapes_for_model``)."""
+    detector's pyramid, ``pyramid_shapes_for_model``), and
+    ``NotImplementedError`` under the spatial axis."""
+    if backbone.spatial is not None:
+        raise NotImplementedError(SPATIAL_REFUSAL)
     fused = stage_grids(backbone, h, w, True)
     module = stage_grids(backbone, h, w, False)
     if fused != module:

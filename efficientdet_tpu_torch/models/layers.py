@@ -12,6 +12,7 @@ input with float32 statistics, as flax does.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -33,6 +34,11 @@ class ConvSame(nn.Module):
     quirk); ``torch_padding`` gives symmetric padding; neither gives none.
     Asymmetric pads go through an explicit ``F.pad``; symmetric ones are
     passed to the conv itself.
+
+    ``band`` (``parallel.spatial.Band``): x is the rank's band of rows of a
+    tensor of ``band.rows`` global rows, and so is the output. The rows
+    the band's output reads come from the ranks that hold them, and the H
+    padding goes only at the global top and bottom.
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
@@ -54,15 +60,27 @@ class ConvSame(nn.Module):
         self.bias = (nn.Parameter(torch.empty(out_channels, device=device))
                      if bias else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def out_rows(self, rows: int) -> int:
+        """The output's height (or width) for an input of ``rows``."""
         lo, hi = self.pad
+        return (rows + lo + hi - self.weight.shape[-1]) // self.stride + 1
+
+    def forward(self, x: torch.Tensor, band=None) -> torch.Tensor:
+        lo, hi = self.pad
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        weight = self.weight.to(x.dtype)
+        if band is not None:
+            def conv(t, top, bottom):
+                return F.conv2d(F.pad(t, (lo, hi, top, bottom)), weight,
+                                bias, self.stride, 0, 1, self.groups)
+            return band.window(x, self.weight.shape[-1], self.stride, lo,
+                               self.out_rows(band.rows), conv)
         padding = lo
         if lo != hi:
             x = F.pad(x, (lo, hi, lo, hi))
             padding = 0
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
-                        padding, 1, self.groups)
+        return F.conv2d(x, weight, bias, self.stride, padding, 1,
+                        self.groups)
 
 
 class ConvModule(nn.Module):
@@ -73,8 +91,8 @@ class ConvModule(nn.Module):
         super().__init__()
         self.conv = ConvSame(*args, **kwargs)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(x)
+    def forward(self, x: torch.Tensor, band=None) -> torch.Tensor:
+        return self.conv(x, band)
 
 
 BN_MODES = ("frozen", "train", "sync")
@@ -124,12 +142,14 @@ class BatchNorm(nn.BatchNorm2d):
 
     ``group`` (set by ``parallel.shard_train_step`` for the length of a
     step, as remat sets ``update_stats``): the process group of a
-    data-parallel step. In ``train`` mode the batch statistics are then the
-    global batch's, as a JAX data mesh gives them: each rank's per-channel
-    sum and sum of squares, in float32, all-reduced as one (2C,) tensor,
-    over the global count (every rank holds a batch of the same shape); the
-    backward sums across the ranks too. Every rank moves its running
-    statistics by the same global values, so they stay equal.
+    data-parallel step, whose ranks hold images or bands of rows of them
+    (the mesh's data x spatial ranks). In ``train`` mode the batch
+    statistics are then the global batch's, as a JAX mesh gives them: each
+    rank's per-channel sum and sum of squares and its element count, in
+    float32, all-reduced as one (2C + 1,) tensor (bands of rows may be
+    uneven, so the count is summed too); the backward sums across the
+    ranks. Every rank moves its running statistics by the same global
+    values, so they stay equal.
 
     ``update_stats`` off skips the buffer update: a rematerialized forward
     recomputes the same batch and must not move the statistics twice (it
@@ -179,12 +199,14 @@ class BatchNorm(nn.BatchNorm2d):
         bias`` in float32, cast back to x's dtype."""
         c = x.shape[1]
         xf = x.float()
+        count = torch.full((1,), x.numel() // c, dtype=torch.float32,
+                           device=x.device)
         sums = _SumAcrossRanks.apply(
-            torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3))]),
-            self.group)
-        count = x.numel() // c * dist.get_world_size(self.group)
+            torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
+                       count]), self.group)
+        count = sums[2 * c:].detach()
         mean = sums[:c] / count
-        var = (sums[c:] / count - mean * mean).clamp_min(0.0)
+        var = (sums[c:2 * c] / count - mean * mean).clamp_min(0.0)
         if self.update_stats:
             with torch.no_grad():
                 self._move_running_stats(mean, var)
@@ -222,56 +244,110 @@ def drop_connect(x: torch.Tensor, rate: float,
     return x / keep * torch.floor(keep + u)
 
 
-def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def nearest_rows(rows_in: int, rows_out: int) -> Tuple[int, ...]:
+    """The input row that each output row of torch's ``nearest-exact``
+    resize (``jax.image.resize``'s nearest) from ``rows_in`` to
+    ``rows_out`` reads, taken from torch itself."""
+    rows = torch.arange(rows_in, dtype=torch.float32).view(1, 1, rows_in, 1)
+    return tuple(int(r) for r in F.interpolate(
+        rows, size=(rows_out, 1), mode="nearest-exact").flatten())
+
+
+def upsample_rows(rows_out: int) -> Tuple[int, ...]:
+    """The input row of each output row of a nearest 2x upsample (cropped
+    to ``rows_out``)."""
+    return tuple(i // 2 for i in range(rows_out))
+
+
+# The resizes and pools take ``band`` as the convs do: x is the rank's band
+# of a tensor of ``band.rows`` global rows, the target (h, w) is global, the
+# result is the rank's band of the output, and the branch is chosen by the
+# global shapes (``parallel.spatial``).
+def rows_of(x: torch.Tensor, band=None) -> int:
+    """The global height of x: its own, or its band's tensor's."""
+    return x.shape[2] if band is None else band.rows
+
+
+def upsample_nearest_2x(x: torch.Tensor, band=None) -> torch.Tensor:
     """Nearest-neighbour x2 upsample."""
+    if band is not None:
+        return upsample_nearest_to(x, 2 * band.rows, 2 * x.shape[3], band)
     return F.interpolate(x, scale_factor=2, mode="nearest")
 
 
-def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+def max_pool_2x2(x: torch.Tensor, band=None) -> torch.Tensor:
     """2x2/2 VALID max pool."""
+    if band is not None:
+        return band.window(x, 2, 2, 0, band.rows // 2,
+                           lambda t, top, bottom: F.max_pool2d(t, 2))
     return F.max_pool2d(x, 2)
 
 
-def max_pool_1x1_stride2(x: torch.Tensor) -> torch.Tensor:
+def max_pool_1x1_stride2(x: torch.Tensor, band=None) -> torch.Tensor:
     """Stride-2 subsample: the reference's ``F.max_pool2d(x, 1, 2)``."""
+    if band is not None:
+        return band.window(x, 1, 2, 0, (band.rows + 1) // 2,
+                           lambda t, top, bottom: t[:, :, ::2, ::2])
     return x[:, :, ::2, ::2]
 
 
-def resize_nearest(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+def resize_nearest(x: torch.Tensor, h: int, w: int, band=None
+                   ) -> torch.Tensor:
     """Nearest resize to (h, w) by ``jax.image.resize(..., "nearest")``'s
     rule: output pixel i reads input pixel ``floor((i + 0.5) * in / out)``,
     which is torch's ``nearest-exact`` (``nearest`` floors ``i * in / out``
     and picks other pixels beyond 2x). Its gradient sums each output
     pixel's gradient into the pixel it read, as ``jax.grad`` does."""
+    if band is not None:
+        return band.gather(x, nearest_rows(band.rows, h), h, lambda t:
+                           F.interpolate(t, size=(t.shape[2], w),
+                                         mode="nearest-exact"))
     return F.interpolate(x, size=(h, w), mode="nearest-exact")
 
 
-def upsample_nearest_to(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+def upsample_width(t: torch.Tensor, w: int) -> torch.Tensor:
+    """Nearest 2x upsample of the width alone, cropped to ``w``."""
+    return F.interpolate(t, size=(t.shape[2], 2 * t.shape[3]),
+                         mode="nearest")[:, :, :, :w]
+
+
+def upsample_nearest_to(x: torch.Tensor, h: int, w: int, band=None
+                        ) -> torch.Tensor:
     """Nearest upsample of a coarser level to an exact (h, w) target: exact
     2x; 2x then a crop where the target is at most 2x (2H-1); otherwise a
     nearest resize (``resize_nearest``). The last is what the backbone's
     nominal-size padding gives at input sizes that are not multiples of 128:
     D7 at 1636 px has a 204/102/51/25/12 pyramid, so 25 <- 12 and 51 <- 25."""
-    hh, ww = 2 * x.shape[2], 2 * x.shape[3]
-    if (h, w) == (hh, ww):
-        return upsample_nearest_2x(x)
-    if h <= hh and w <= ww:
-        return upsample_nearest_2x(x)[:, :, :h, :w]
-    return resize_nearest(x, h, w)
+    hh, ww = 2 * rows_of(x, band), 2 * x.shape[3]
+    if h > hh or w > ww:
+        return resize_nearest(x, h, w, band)
+    if band is not None:
+        return band.gather(x, upsample_rows(h), h,
+                           lambda t: upsample_width(t, w))
+    up = upsample_nearest_2x(x)
+    return up if (h, w) == (hh, ww) else up[:, :, :h, :w]
 
 
-def max_pool_2x2_to(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+def max_pool_2x2_to(x: torch.Tensor, h: int, w: int, band=None
+                    ) -> torch.Tensor:
     """2x2/2 max pool of a finer level to an exact (h, w) target: the floor
     (VALID) size; a ceil size, whose window at the bottom/right edge sees
     only the pixels inside (the -inf padding of the JAX helper); otherwise
     the VALID pool, then a nearest resize to the target (D7 at 1636 px:
     25 from 51, 12 from 25)."""
-    if (h, w) == (x.shape[2] // 2, x.shape[3] // 2):
-        return max_pool_2x2(x)
-    pad_h, pad_w = 2 * h - x.shape[2], 2 * w - x.shape[3]
+    rows = rows_of(x, band)
+    if (h, w) == (rows // 2, x.shape[3] // 2):
+        return max_pool_2x2(x, band)
+    pad_h, pad_w = 2 * h - rows, 2 * w - x.shape[3]
     if 0 <= pad_h <= 1 and 0 <= pad_w <= 1:
-        return F.max_pool2d(x, 2, ceil_mode=True)
-    return resize_nearest(max_pool_2x2(x), h, w)
+        if band is None:
+            return F.max_pool2d(x, 2, ceil_mode=True)
+        return band.window(x, 2, 2, 0, h, lambda t, top, bottom: F.max_pool2d(
+            F.pad(t, (0, 0, top, bottom), value=-math.inf), 2,
+            ceil_mode=True))
+    pooled = max_pool_2x2(x, band)
+    return resize_nearest(pooled, h, w, band and band.at(rows // 2))
 
 
 class ConvWS(nn.Module):

@@ -24,7 +24,7 @@ reference form.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -216,11 +216,15 @@ def focal_loss_from_level_logits(cls_levels: Sequence[torch.Tensor],
                                  reg_levels: Sequence[torch.Tensor],
                                  anchor_levels: Sequence[torch.Tensor],
                                  annotations: torch.Tensor,
-                                 alpha: float = 0.25, gamma: float = 2.0
+                                 alpha: float = 0.25, gamma: float = 2.0,
+                                 reduce_sums: Optional[Callable] = None
                                  ) -> Pair:
     """The training path: per-level logits [(B, A_l, C)], deltas
     [(B, A_l, 4)] and anchors [(A_l, 4)] -> (cls_loss, reg_loss), with no
-    (B, A_total, C) concatenation."""
+    (B, A_total, C) concatenation. ``reduce_sums(cls, reg, positives)``,
+    when given, maps the per-image sums (each (B,)) before they are
+    normalized: the spatial axis adds them over the ranks that hold the
+    other anchors of each image."""
     if not len(cls_levels) == len(reg_levels) == len(anchor_levels):
         raise ValueError(
             "focal_loss_from_level_logits: per-level lists must align, got "
@@ -233,6 +237,9 @@ def focal_loss_from_level_logits(cls_levels: Sequence[torch.Tensor],
         cls_sums = cls_sums + c
         reg_sums = reg_sums + r
         pos_counts = pos_counts + p
+    if reduce_sums is not None:
+        cls_sums, reg_sums, pos_counts = reduce_sums(cls_sums, reg_sums,
+                                                     pos_counts)
     pos_f = pos_counts.float()
     cls_loss = cls_sums / pos_f.clamp_min(1.0)
     reg_loss = reg_sums / (4.0 * pos_f).clamp_min(1.0)

@@ -1,40 +1,44 @@
-"""Data parallelism over ``torch.distributed``: the counterpart of
-``efficientdet_tpu/parallel/mesh.py``.
+"""Data parallelism and the spatial axis over ``torch.distributed``: the
+counterpart of ``efficientdet_tpu/parallel/mesh.py``.
 
-The JAX package runs one process per host over a ``jax.sharding.Mesh``:
-the global batch is one logical array split on the 'data' axis, the state
-is replicated, and ``jit`` places the gradient all-reduce. The port runs
-PyTorch's way, the reference's DDP way: one process per card in a process
-group (NCCL on the card, gloo on the CPU), each holding the state and its
-rank's part of the global batch, with the collectives written out:
+The JAX package runs one process per host over a ``jax.sharding.Mesh``
+with axes ('data', 'spatial'): the global batch is one logical array split
+on 'data' (and its image height on 'spatial'), the state is replicated, and
+``jit`` places the collectives. The port runs PyTorch's way, the
+reference's DDP way: one process per rank in a process group (NCCL on the
+card, gloo on the CPU), each holding the state and its part of the global
+batch, with the collectives written out. The ranks form JAX's row-major
+(data, spatial) grid: world rank = data rank x S + spatial rank.
 
 - ``create_mesh``, for ``jax.distributed.initialize()`` with
-  ``create_mesh``: joins a launcher's process group (``torchrun`` sets
-  ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
-  ``MASTER_PORT``; ``env://``) or adopts one already made, and returns the
-  rank's ``Mesh``. Without either it is one process and no group.
+  ``create_mesh(num_data, num_spatial)``: joins a launcher's process group
+  (``torchrun`` sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+  ``MASTER_ADDR`` and ``MASTER_PORT``; ``env://``) or adopts one already
+  made, makes the spatial and data subgroups where both axes are wider
+  than 1, and returns the rank's ``Mesh``. Without either it is one
+  process and no group.
 - ``put_replicated``, for a replicated ``device_put``: rank 0's parameters,
   buffers and optimizer state broadcast to every rank, as DDP does at
   construction.
-- ``put_batch``, for ``make_array_from_process_local_data``: the rank's own
-  part of the global batch to its device (the loader's
-  ``shard_index=rank, num_shards=world`` gives each rank a disjoint part).
+- ``put_batch``, for ``make_array_from_process_local_data`` with
+  ``image_sharding``: the rank's part of the global batch to its device
+  (the loader's ``shard_index=data rank, num_shards=data width`` gives
+  each data rank a disjoint part), its images cut to the rank's band of
+  rows (``parallel.spatial``), its annotations whole.
 - ``shard_train_step``: the train step over the global batch. The
-  drop-connect masks are the global draw's slice for the rank, every raw
-  gradient is averaged across the ranks before the clip, the accumulation
-  and AdamW, the losses are global means, and ``train``-mode BatchNorm
-  takes the global batch's statistics. The result is the step a single
-  process takes over the whole global batch.
-- ``shard_eval_step``: each rank serves its slice; the detections are
-  all-gathered into the global batch's, in rank order.
+  drop-connect masks are the global draw's slice for the data rank, every
+  raw gradient is summed over the ranks and divided by the data width
+  before the clip, the accumulation and AdamW, the losses are global means,
+  and ``train``-mode BatchNorm takes the statistics of the global batch
+  over data and spatial ranks. The result is the step a single process
+  takes over the whole global batch.
+- ``shard_eval_step``: each data rank serves its slice (under the spatial
+  axis its spatial ranks serve bands of it, and one of them runs NMS);
+  the detections are all-gathered into the global batch's, in rank order.
+  ``shard_loss_step``: the validation loss under the spatial axis.
 - ``batch_sharding``, ``image_sharding`` and ``replicated`` name XLA layouts
   of one logical array over many devices. A process group holds no such
   array, so they have no counterpart.
-- The mesh's 'spatial' axis (``num_spatial`` > 1) shards activation height
-  with halo exchanges that XLA inserts around every strided and windowed
-  op. PyTorch has no such partitioner: it needs a hand-written exchange
-  around each of those ops, and at least two cards to mean anything. It
-  raises (ROADMAP A17).
 
 At world size 1 without a group, ``shard_train_step`` and
 ``shard_eval_step`` return the step they are given, unchanged. A group of
@@ -56,27 +60,39 @@ from ..device import default_device
 from ..models.efficientnet import MBConvBlock
 from ..models.layers import BatchNorm
 from ..ops.nms import Detections
+from .spatial import SpatialPlan, all_gather, band
 
-SPATIAL_REFUSAL = (
-    "num_spatial/--spatial_shards > 1 (activation height sharded over "
-    "devices) is not ported: the JAX package relies on XLA inserting halo "
-    "exchanges around every strided and windowed op, which PyTorch does not "
-    "do; it needs a hand-written exchange and at least two cards (ROADMAP "
-    "A17)")
 LOSS_KEYS = ("loss", "cls_loss", "reg_loss")
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """One rank's view of the data-parallel group. ``group`` is None for
-    one process without a group; ``owns_group``: ``create_mesh`` made it,
-    and ``close`` destroys it."""
+    """One rank's view of the (data, spatial) grid. ``group`` is the whole
+    group (None for one process without a group); ``spatial_group`` the
+    ranks that share the rank's images (None where ``num_spatial`` is 1).
+    The data axis needs no group of its own: the gradient, the losses and
+    the detections cross the whole group. ``owns_group``: ``create_mesh``
+    made it, and ``close`` destroys it."""
     rank: int
     world_size: int
     local_rank: int
     device: torch.device
     group: Optional[dist.ProcessGroup] = None
     owns_group: bool = False
+    num_spatial: int = 1
+    spatial_group: Optional[dist.ProcessGroup] = None
+
+    @property
+    def num_data(self) -> int:
+        return self.world_size // self.num_spatial
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.num_spatial
+
+    @property
+    def spatial_rank(self) -> int:
+        return self.rank % self.num_spatial
 
     @property
     def is_chief(self) -> bool:
@@ -123,10 +139,15 @@ def create_mesh(num_data: Optional[int] = None, num_spatial: int = 1,
     explicit index is taken as given, which with ``backend='gloo'`` lets
     several ranks share one card. NCCL needs a card of its own per rank:
     more ranks on the host than cards, or a rank asking for another than
-    its own, raises before NCCL would. ``num_data``, when given, must equal
-    the world size."""
-    if num_spatial != 1:
-        raise NotImplementedError(SPATIAL_REFUSAL)
+    its own, raises before NCCL would.
+
+    ``num_spatial`` (S) ranks share each image, each holding a band of its
+    rows; ``num_data`` (default: the world size over S) data ranks split
+    the batch, and ``num_data x num_spatial`` must equal the world size.
+    Where both exceed 1, every rank makes every spatial group (ranks d S ..
+    d S + S - 1), in that order."""
+    if num_spatial < 1:
+        raise ValueError(f"num_spatial={num_spatial} must be at least 1")
     device = torch.device(device)
     env = launcher_env()
     owns = False
@@ -158,17 +179,28 @@ def create_mesh(num_data: Optional[int] = None, num_spatial: int = 1,
         if init_method is not None:
             raise ValueError(f"init_method={init_method!r} needs RANK and "
                              "WORLD_SIZE in the environment")
-        if (num_data or 1) != 1:
+        if (num_data or 1) * num_spatial != 1:
             raise ValueError(
-                f"num_data={num_data} needs that many processes: start them "
-                "with torchrun, or with the training driver's --num_devices")
+                f"num_data={num_data} x num_spatial={num_spatial} needs "
+                "that many processes: start them with torchrun, or with "
+                "the training driver's --num_devices and --spatial_shards")
         return Mesh(0, 1, 0, default_device(device))
-    if num_data is not None and num_data != world:
+    data = world // num_spatial if num_data is None else num_data
+    if data * num_spatial != world:
         if owns:
             dist.destroy_process_group()
-        raise ValueError(f"num_data={num_data}, but the process group has "
-                         f"{world} rank(s) (WORLD_SIZE)")
-    return Mesh(rank, world, local_rank, device, group, owns)
+        raise ValueError(f"num_data={num_data} x num_spatial={num_spatial}, "
+                         f"but the process group has {world} rank(s) "
+                         "(WORLD_SIZE)")
+    spatial_group = group if num_spatial > 1 else None
+    if num_spatial > 1 and data > 1:
+        for d in range(data):
+            g = dist.new_group(list(range(d * num_spatial,
+                                          (d + 1) * num_spatial)))
+            if d == rank // num_spatial:
+                spatial_group = g
+    return Mesh(rank, world, local_rank, device, group, owns, num_spatial,
+                spatial_group)
 
 
 # ------------------------------------------------------------------ state
@@ -223,8 +255,15 @@ def put_replicated(state, mesh: Mesh):
 
 
 def put_batch(batch: Dict, mesh: Mesh) -> Dict[str, torch.Tensor]:
-    """The rank's own part of the global batch, on the rank's device."""
-    return to_device(batch, mesh.device)
+    """The rank's own part of the global batch, on the rank's device: the
+    data rank's images cut to the rank's band of rows (NHWC height) under
+    the spatial axis, every other field whole."""
+    batch = to_device(batch, mesh.device)
+    if mesh.num_spatial > 1:
+        images = batch["images"]
+        lo, hi = band(images.shape[1], mesh.spatial_rank, mesh.num_spatial)
+        batch["images"] = images[:, lo:hi]
+    return batch
 
 
 # ------------------------------------------------------------------ steps
@@ -238,49 +277,72 @@ def mean_across_ranks(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return t.div_(mesh.world_size)
 
 
-def _mean_gradients_(grads: List[torch.Tensor], mesh: Mesh) -> None:
-    """Each gradient replaced in place by its mean over the ranks, through
-    one all-reduce of one flat buffer."""
-    flat = mean_across_ranks(torch.cat([g.reshape(-1) for g in grads]), mesh)
+def _reduce_gradients_(grads: List[torch.Tensor], mesh: Mesh) -> None:
+    """Each gradient replaced in place by its sum over the ranks divided by
+    the data width, through one all-reduce of one flat buffer: a data
+    rank's gradient is the sum of its spatial ranks' (each holds the part
+    of the gradient that flows through its band), and the data ranks'
+    are averaged."""
+    flat = torch.cat([g.reshape(-1) for g in grads]).float()
+    dist.all_reduce(flat, group=mesh.group)
+    flat.div_(mesh.num_data)
     for g, part in zip(grads, flat.split([g.numel() for g in grads])):
         g.copy_(part.view(g.shape))
 
 
-def _bind(model: nn.Module, mesh: Optional[Mesh]) -> None:
-    """Point every BatchNorm at the group and every MBConv block at the
-    rank's share of the global batch; None restores the one-process
-    setting."""
+def _plan(model: nn.Module, mesh: Mesh, plans: Dict) -> Optional[SpatialPlan]:
+    """The model's ``SpatialPlan`` on ``mesh`` (made once, kept in
+    ``plans``), or None without the spatial axis."""
+    if mesh.num_spatial == 1:
+        return None
+    if id(model) not in plans:
+        plans[id(model)] = (model, SpatialPlan.for_model(
+            model, mesh.spatial_group, mesh.spatial_rank, mesh.num_spatial))
+    return plans[id(model)][1]
+
+
+def _bind(model: nn.Module, mesh: Optional[Mesh],
+          plan: Optional[SpatialPlan] = None) -> None:
+    """Point every BatchNorm at the group, every MBConv block at its data
+    rank's share of the global batch and the detector and its backbone at
+    the spatial plan; None restores the one-process setting."""
     for m in model.modules():
         if isinstance(m, BatchNorm):
             m.group = mesh.group if mesh else None
         elif isinstance(m, MBConvBlock):
-            m.batch_shard = (mesh.rank, mesh.world_size) if mesh else (0, 1)
+            m.batch_shard = ((mesh.data_rank, mesh.num_data) if mesh
+                             else (0, 1))
+    model.spatial = model.backbone.spatial = plan
 
 
 def shard_train_step(train_step: Callable, mesh: Mesh) -> Callable:
     """``make_train_step``'s step over the global batch: (state, the rank's
     batch, seed) -> metrics, on every rank alike.
 
-    Rank r's batch holds the global batch's images r, r + world, ... (the
-    loader's split). Every raw gradient is averaged across the ranks in one
-    all-reduce before the norm, the accumulation, the clip and AdamW, so
-    ``grad_norm`` is the global gradient's and every rank updates alike;
-    ``loss``, ``cls_loss`` and ``reg_loss`` are the global means, reduced in
-    float32 (the loss is a mean over images, so the mean of equal shards'
-    losses is the global one); drop-connect and ``train``-mode BatchNorm
-    act on the global batch. ``bn_mode='sync'`` raises, as in JAX.
+    Data rank d's batch holds the global batch's images d, d + N, ... (the
+    loader's split over the N data ranks), each rank of it a band of their
+    rows (``put_batch``). Every raw gradient is summed over the ranks and
+    divided by N in one all-reduce before the norm, the accumulation, the
+    clip and AdamW, so ``grad_norm`` is the global gradient's and every
+    rank updates alike; ``loss``, ``cls_loss`` and ``reg_loss`` are the
+    global means, reduced in float32 (the loss is a mean over images, so
+    the mean of equal shards' losses is the global one); drop-connect and
+    ``train``-mode BatchNorm act on the global batch. ``bn_mode='sync'``
+    raises, as in JAX.
 
     Without a group it returns ``train_step`` itself."""
     if mesh.group is None:
         return train_step
+    plans: Dict = {}
 
     def sharded_step(state, batch: Dict, seed: int
                      ) -> Dict[str, torch.Tensor]:
-        _bind(state.model, mesh)
+        _bind(state.model, mesh, _plan(state.model, mesh, plans))
         try:
             metrics = train_step(
                 state, batch, seed,
-                reduce_gradients=lambda grads: _mean_gradients_(grads, mesh))
+                reduce_gradients=lambda grads: _reduce_gradients_(grads,
+                                                                  mesh))
         finally:
             _bind(state.model, None)
         losses = mean_across_ranks(
@@ -291,21 +353,61 @@ def shard_train_step(train_step: Callable, mesh: Mesh) -> Callable:
     return sharded_step
 
 
+def shard_loss_step(loss_step: Callable, mesh: Mesh) -> Callable:
+    """``make_loss_step``'s step on the rank's batch (``put_batch``):
+    (cls_loss, reg_loss) of the data rank's images, on each of its spatial
+    ranks alike. Without the spatial axis it returns ``loss_step``
+    itself."""
+    if mesh.num_spatial == 1:
+        return loss_step
+    model, plans = loss_step.model, {}
+
+    def sharded_step(batch: Dict):
+        _bind(model, mesh, _plan(model, mesh, plans))
+        try:
+            return loss_step(batch)
+        finally:
+            _bind(model, None)
+
+    return sharded_step
+
+
 def shard_eval_step(eval_step: Callable[[torch.Tensor], Detections],
                     mesh: Mesh) -> Callable[[torch.Tensor], Detections]:
-    """``make_eval_step``'s step over the global batch: rank r passes the
-    r-th of the world's equal contiguous slices of the images, and every
-    rank gets the global batch's ``Detections``, gathered in rank order.
-    Without a group it returns ``eval_step`` itself."""
+    """``make_eval_step``'s step over the global batch: data rank d passes
+    the d-th of the N data ranks' equal contiguous slices of the images
+    (under the spatial axis, each of its ranks the band of rows that
+    ``put_batch`` gives), and every rank gets the global batch's
+    ``Detections``, gathered in rank order. Under the spatial axis the head
+    gathers each image's outputs over its spatial group, the group's rank
+    0 alone runs the NMS tail (one launch of the kernel per data rank), and
+    one all-gather over the whole group keeps those ranks' detections, in
+    data rank order. A fused-backbone step refuses the spatial axis when
+    called (``fused_serving.SPATIAL_REFUSAL``). Without a group it returns
+    ``eval_step`` itself."""
     if mesh.group is None:
         return eval_step
-
-    def gather(t: torch.Tensor) -> torch.Tensor:
-        parts = [torch.empty_like(t) for _ in range(mesh.world_size)]
-        dist.all_gather(parts, t.contiguous(), group=mesh.group)
-        return torch.cat(parts)
+    spatial = mesh.num_spatial > 1
+    model, plans = getattr(eval_step, "model", None), {}
+    if spatial and model is None:
+        raise ValueError("the spatial axis needs make_eval_step's step")
 
     def sharded_step(images: torch.Tensor) -> Detections:
-        return Detections(*(gather(t) for t in eval_step(images)))
+        if not spatial:
+            return Detections(*(torch.cat(all_gather(t, mesh.group))
+                                for t in eval_step(images)))
+        _bind(model, mesh, _plan(model, mesh, plans))
+        try:
+            det = eval_step(images)
+        finally:
+            _bind(model, None)
+        if det is None:   # another rank of the spatial group ran the NMS
+            b, d = images.shape[0], model.config.max_detections
+            zeros = lambda *shape, dtype=torch.float32: torch.zeros(
+                shape, dtype=dtype, device=images.device)
+            det = Detections(zeros(b, d), zeros(b, d, dtype=torch.int32),
+                             zeros(b, d, 4), zeros(b, d, dtype=torch.bool))
+        return Detections(*(torch.cat(all_gather(t, mesh.group)
+                                      [::mesh.num_spatial]) for t in det))
 
     return sharded_step

@@ -19,6 +19,8 @@ printed lines, the ``MetricLogger`` records and a checkpoint per epoch
         --dataset synthetic --input_size 128 --batch_size 4
     torchrun --nproc_per_node 8 -m efficientdet_tpu_torch.train --multihost \\
         --dataset VOC --bf16 --batch_size 256
+    python -m efficientdet_tpu_torch.train --num_devices 1 \\
+        --spatial_shards 2 --device cpu --dataset synthetic --input_size 128
 
 Data parallelism (``parallel/``), as ``train.py``'s: ``--batch_size`` is
 the global batch, split evenly over the ranks, one process per card (NCCL;
@@ -28,7 +30,11 @@ gloo with ``--device cpu``). Under a launcher's environment (``torchrun``:
 part of every global batch, all take the same step (the gradient and the
 losses averaged over the ranks, ``train``-mode BatchNorm over the global
 batch), and rank 0 alone prints, logs and saves; the others wait for the
-save before going on.
+save before going on. ``--spatial_shards S`` (the mesh's spatial axis,
+``parallel/spatial.py``) gives each of the N data ranks S ranks that split
+its images' height: N x S processes (a card each under NCCL), ordered as
+JAX's (data, spatial) grid; the S ranks of a data rank load the same
+images with the same random draws and keep their bands of rows.
 
 Batches of a VOC or COCO set come from the C++ JPEG pipeline
 (``efficientdet_tpu_torch.native``) under ``--native_loader auto`` where it
@@ -57,7 +63,8 @@ from ..data import (CocoDataset, DataLoader, SyntheticDetection, VOCDetection,
                     eval_transforms, get_augmentation, train_transforms)
 from ..models import EfficientDet
 from ..parallel import (Mesh, create_mesh, launcher_env, mean_across_ranks,
-                        put_batch, put_replicated, shard_train_step)
+                        put_batch, put_replicated, shard_loss_step,
+                        shard_train_step)
 from ..utils import checkpoint as ckpt
 from ..utils.visualization import MetricLogger
 from .train_lib import (OptimizerConfig, PlateauScheduler, create_train_state,
@@ -120,16 +127,18 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "driver's --platform; 'cpu' trains on the CPU. "
                         "Without a card, 'cuda' raises")
     p.add_argument("--num_devices", type=int, default=None,
-                   help="data-parallel ranks, one process each: under a "
-                        "launcher (torchrun) it must equal WORLD_SIZE; "
-                        "otherwise N > 1 spawns N local processes, one per "
-                        "card over NCCL, or on the CPU over gloo with "
-                        "--device cpu (default: every visible card; 1 on "
-                        "the CPU)")
+                   help="data-parallel ranks, --spatial_shards processes "
+                        "each: under a launcher (torchrun) N x S must equal "
+                        "WORLD_SIZE; otherwise N x S > 1 spawns that many "
+                        "local processes, one per card over NCCL, or on the "
+                        "CPU over gloo with --device cpu (default: every "
+                        "visible card over S; 1 on the CPU)")
     p.add_argument("--spatial_shards", type=int, default=1,
-                   help="activation-height sharding of the JAX driver: not "
-                        "ported (PyTorch inserts no halo exchanges; ROADMAP "
-                        "A17), only 1")
+                   help="split each image's activation height over this "
+                        "many ranks (halo exchanges written out, "
+                        "parallel/spatial.py): --num_devices data ranks x "
+                        "--spatial_shards processes, a card each under "
+                        "NCCL")
     p.add_argument("--multihost", action="store_true",
                    help="join the process group of a launcher's "
                         "environment (torchrun, or RANK, WORLD_SIZE, "
@@ -237,11 +246,10 @@ def build_dataset(args: argparse.Namespace, train: bool, input_size: int):
 def local_ranks_to_spawn(args: argparse.Namespace) -> int:
     """How many local processes ``main`` spawns: 0 to train in this
     process, which is one process or one rank of a launcher's group.
-    Raises for the data-parallel settings that cannot train."""
-    if args.spatial_shards != 1:
-        raise NotImplementedError(f"--spatial_shards {args.spatial_shards}: "
-                                  "activation-height sharding is not "
-                                  "ported (ROADMAP A17)")
+    Raises for the data-parallel and spatial settings that cannot train."""
+    spatial = args.spatial_shards
+    if spatial < 1:
+        raise ValueError(f"--spatial_shards {spatial} must be at least 1")
     env = launcher_env()
     if args.multihost and env is None:
         raise RuntimeError(
@@ -249,22 +257,25 @@ def local_ranks_to_spawn(args: argparse.Namespace) -> int:
             "environment: RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT "
             "(torchrun sets them)")
     if env is not None:
-        if args.num_devices not in (None, env[1]):
-            raise ValueError(f"--num_devices {args.num_devices}, but the "
+        if env[1] % spatial or args.num_devices not in (None,
+                                                        env[1] // spatial):
+            raise ValueError(f"--num_devices {args.num_devices} x "
+                             f"--spatial_shards {spatial}, but the "
                              f"launcher's WORLD_SIZE is {env[1]}")
         return 0
     cuda = torch.device(args.device).type == "cuda"
-    n = args.num_devices or (max(torch.cuda.device_count(), 1) if cuda
-                             else 1)
-    if cuda and n > 1 and n > torch.cuda.device_count():
+    cards = torch.cuda.device_count()
+    n = args.num_devices or (max(cards // spatial, 1) if cuda else 1)
+    procs = n * spatial
+    if cuda and procs > 1 and procs > cards:
         raise ValueError(
-            f"--num_devices {n} --device {args.device}: this host has "
-            f"{torch.cuda.device_count()} CUDA card(s), and each rank needs "
-            "one of its own")
+            f"--num_devices {n} --spatial_shards {spatial} --device "
+            f"{args.device}: {procs} ranks, this host has {cards} CUDA "
+            "card(s), and each rank needs one of its own")
     if args.batch_size % n:
         raise ValueError(f"global batch {args.batch_size} must divide over "
                          f"{n} devices")
-    return n if n > 1 else 0
+    return procs if procs > 1 else 0
 
 
 class Trainer:
@@ -272,24 +283,26 @@ class Trainer:
 
     ``state`` is the ``TrainState``; ``fit`` runs the epochs from
     ``start_epoch`` and returns the summary ``main`` returns. ``mesh`` is
-    the rank's data-parallel group (``parallel.create_mesh``); by default
-    the launcher's, or one process."""
+    the rank's place in the (data, spatial) grid
+    (``parallel.create_mesh``); by default the launcher's, or one
+    process."""
 
     def __init__(self, args: argparse.Namespace, mesh: Optional[Mesh] = None):
         if mesh is None:
             if local_ranks_to_spawn(args):
                 raise ValueError(
-                    f"--num_devices {args.num_devices} needs that many "
+                    f"--num_devices {args.num_devices} --spatial_shards "
+                    f"{args.spatial_shards} needs that many "
                     "processes: main() spawns them, or start them with "
                     "torchrun")
             mesh = create_mesh(args.num_devices, args.spatial_shards,
                                device=args.device)
         self.mesh = mesh
-        world = mesh.world_size
-        if args.batch_size % world:
+        data = mesh.num_data
+        if args.batch_size % data:
             raise ValueError(f"global batch {args.batch_size} must divide "
-                             f"over {world} devices")
-        rank_batch = args.batch_size // world
+                             f"over {data} devices")
+        rank_batch = args.batch_size // data
         # Rank 0 alone prints, logs and saves, as the JAX driver's chief.
         self.log = print if mesh.is_chief else (lambda *a, **k: None)
         self.args = args
@@ -326,7 +339,8 @@ class Trainer:
             learning_rate=args.lr, weight_decay=args.weight_decay,
             grad_clip_norm=args.grad_clip_norm,
             grad_accumulation_steps=args.grad_accumulation_steps))
-        self.log(f"devices: {world} data x 1 spatial | processes: {world} "
+        self.log(f"devices: {data} data x {mesh.num_spatial} spatial | "
+                 f"processes: {mesh.world_size} "
                  f"| global batch: {args.batch_size} | per-process: "
                  f"{rank_batch} | per-device: {rank_batch} | device: "
                  f"{self.device}")
@@ -361,7 +375,7 @@ class Trainer:
         self.loader = DataLoader(
             self.train_ds, rank_batch, shuffle=True,
             max_boxes=args.max_boxes, seed=args.seed,
-            shard_index=mesh.rank, num_shards=world,
+            shard_index=mesh.data_rank, num_shards=data,
             # The C++ pipeline makes the basic transform only: the full
             # recipe runs through the dataset's Python path.
             native="off" if args.augment == "full" else args.native_loader,
@@ -374,13 +388,14 @@ class Trainer:
                                            patience=args.lr_patience)
                           if args.lr_schedule == "plateau" else None)
 
-        self.val_loss_step = make_loss_step(self.model, self.cfg)
+        self.val_loss_step = shard_loss_step(
+            make_loss_step(self.model, self.cfg), mesh)
         try:
             val_ds = build_dataset(args, False, input_size)
             self.val_loader = DataLoader(
                 val_ds, rank_batch, shuffle=False,
                 max_boxes=args.max_boxes, drop_last=True,
-                shard_index=mesh.rank, num_shards=world,
+                shard_index=mesh.data_rank, num_shards=data,
                 native=args.native_loader, image_size=input_size,
                 uint8_images=args.device_normalize)
         except (FileNotFoundError, OSError):
@@ -526,8 +541,8 @@ def _rank_main(local_rank: int, args: argparse.Namespace, world: int,
             "OMP_NUM_THREADS" not in os.environ:
         # The ranks share the host's cores, as torchrun's would.
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-    mesh = create_mesh(world, args.spatial_shards, device=args.device,
-                       init_method=init_method)
+    mesh = create_mesh(world // args.spatial_shards, args.spatial_shards,
+                       device=args.device, init_method=init_method)
     try:
         summary = Trainer(args, mesh).fit()
     finally:

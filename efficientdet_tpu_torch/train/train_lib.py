@@ -18,7 +18,10 @@ Counterpart of ``efficientdet_tpu/train/train_lib.py``:
   model's training mode: the step puts the model in it; BatchNorm running
   statistics move only with ``cfg.bn_mode == 'train'``. The drop-connect
   generator of a step is seeded from ``(seed, step)``, as JAX folds the
-  step into its key. Its data-parallel form is ``parallel.shard_train_step``.
+  step into its key. Its data-parallel form is ``parallel.shard_train_step``;
+  under the mesh's spatial axis (``EfficientDet.spatial`` bound) the loss
+  is taken on the rank's anchors, its per-image sums added over the
+  spatial group (``training_loss``).
 - ``PlateauScheduler``: a copy of the JAX package's (which lives in a
   module that imports jax and optax), torch's ReduceLROnPlateau semantics.
 """
@@ -205,6 +208,25 @@ def step_generator(seed: int, step: int, device: torch.device
     return torch.Generator(device=device).manual_seed(mixed)
 
 
+def training_loss(model: EfficientDet, images: torch.Tensor,
+                   annotations: torch.Tensor, anchor_levels, cfg:
+                   DetectorConfig, generator: Optional[torch.Generator] = None
+                   ) -> tuple:
+    """(cls_loss, reg_loss) of the per-level training forward. Under the
+    spatial axis the logits are the rank's band of each level: the loss
+    takes the band's anchors and adds its per-image sums and positive
+    counts over the spatial group before it normalizes, so every rank of
+    the group holds the image's loss, and its gradient reaches each rank's
+    own terms once (``SpatialPlan.sum_loss_terms``)."""
+    cls_levels, reg_levels = model.train_forward_levels(images, generator)
+    plan = model.spatial
+    if plan is not None:
+        anchor_levels = plan.band_anchors(anchor_levels)
+    return detection_loss_from_level_logits(
+        cls_levels, reg_levels, anchor_levels, annotations, cfg,
+        reduce_sums=plan and plan.sum_loss_terms)
+
+
 def make_train_step(model: EfficientDet, cfg: DetectorConfig
                     ) -> Callable[..., Dict[str, torch.Tensor]]:
     """(state, batch {'images', 'annotations'} on the model's device, seed)
@@ -225,10 +247,9 @@ def make_train_step(model: EfficientDet, cfg: DetectorConfig
                    ) -> Dict[str, torch.Tensor]:
         images = maybe_normalize_images(batch["images"])
         state.model.train()
-        cls_levels, reg_levels = state.model.train_forward_levels(
-            images, step_generator(seed, state.step, images.device))
-        cls_loss, reg_loss = detection_loss_from_level_logits(
-            cls_levels, reg_levels, anchor_levels, batch["annotations"], cfg)
+        cls_loss, reg_loss = training_loss(
+            state.model, images, batch["annotations"], anchor_levels, cfg,
+            step_generator(seed, state.step, images.device))
         loss = cls_loss + reg_loss
         grads = list(torch.autograd.grad(loss, state.params))
         if reduce_gradients is not None:
@@ -252,11 +273,10 @@ def make_loss_step(model: EfficientDet, cfg: DetectorConfig
     @torch.no_grad()
     def loss_step(batch: Dict):
         model.eval()
-        cls_levels, reg_levels = model.train_forward_levels(
-            maybe_normalize_images(batch["images"]))
-        return detection_loss_from_level_logits(
-            cls_levels, reg_levels, anchor_levels, batch["annotations"], cfg)
+        return training_loss(model, maybe_normalize_images(batch["images"]),
+                              batch["annotations"], anchor_levels, cfg)
 
+    loss_step.model = model
     return loss_step
 
 
@@ -277,7 +297,13 @@ def make_eval_step(model: EfficientDet, cfg: DetectorConfig,
     (``models/fused_serving.py``), reading the same weights; it needs frozen
     BN (eval), and raises ``ValueError`` here, naming both grids, where the
     fused path's pyramid at ``cfg.input_size`` is not the model's
-    (``check_fused_grid``: D7 at 1636 px, or D0 at 164 px)."""
+    (``check_fused_grid``: D7 at 1636 px, or D0 at 164 px).
+
+    Under the spatial axis (``parallel.shard_eval_step`` binds
+    ``model.spatial``) the images are the rank's band of rows, and the
+    head gathers the whole image's outputs; the rank of index 0 of the
+    spatial group runs the NMS tail and returns the detections, the others
+    return None."""
     cfg = cfg.resolve()
     if fused_backbone:
         check_fused_grid(model.backbone, cfg.input_size, cfg.input_size)
@@ -293,7 +319,10 @@ def make_eval_step(model: EfficientDet, cfg: DetectorConfig,
                 fused_backbone_forward(model.backbone, images, model.dtype))
         else:
             scores, classes, box_deltas = model.serving_forward(images)
+        if model.spatial is not None and model.spatial.index:
+            return None
         return postprocess_from_scores(scores, classes, box_deltas,
                                        model.anchors, cfg)
 
+    eval_step.model = model
     return eval_step

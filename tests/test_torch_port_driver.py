@@ -530,7 +530,7 @@ REFUSED = {
     "multihost": (["--multihost"], RuntimeError, "launcher"),
     "num_devices": (["--num_devices", "3"], ValueError,
                     "global batch 2 must divide over 3"),
-    "spatial_shards": (["--spatial_shards", "2"], NotImplementedError, "A17"),
+    "spatial_shards": (["--spatial_shards", "0"], ValueError, "at least 1"),
     "native_on_unavailable": (["--native_loader", "on", "--dataset", "VOC"],
                               RuntimeError, "EDT_DISABLE_NATIVE"),
     "native_on_synthetic": (["--native_loader", "on"], ValueError,

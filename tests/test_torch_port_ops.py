@@ -110,11 +110,10 @@ def test_max_pool_2x2_to_matches(big, target):
     np.testing.assert_array_equal(_nhwc(got), np.asarray(want))
 
 
-def test_resize_beyond_2x_not_ported():
-    """The two targets this test once saw refused are ported: a nearest
-    upsample beyond 2x and a pool then a nearest resize, both exactly
-    JAX's (``tests/test_torch_port_geometry.py`` holds every branch and
-    its gradient)."""
+def test_resize_beyond_2x_and_pool_then_resize_equal_jax():
+    """A nearest upsample beyond 2x and a pool then a nearest resize, both
+    exactly JAX's (``tests/test_torch_port_geometry.py`` holds every branch
+    and its gradient)."""
     x = np.random.RandomState(4).randn(1, 4, 4, 3).astype(np.float32)
     for fn, target in (("upsample_nearest_to", (9, 9)),
                        ("max_pool_2x2_to", (1, 1))):

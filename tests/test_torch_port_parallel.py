@@ -26,9 +26,9 @@ classes) from the same JAX variables on both sides. Checked:
 - the driver at ``--num_devices 2``: rank 0 alone prints, logs and saves,
   ``main`` returns its summary, a resume continues bit-equal, JAX's
   ``load_weights`` reads the blob;
-- the refusals: ``--spatial_shards``, more ranks than cards, ``--multihost``
-  without a launcher, a global batch that does not divide, and
-  ``bn_mode='sync'`` training in both packages.
+- the refusals: more ranks than cards (data, and data x spatial),
+  ``--multihost`` without a launcher, a global batch that does not divide,
+  and ``bn_mode='sync'`` training in both packages.
 
 JAX runs at ``highest`` matmul precision and is imported inside the tests.
 """
@@ -733,8 +733,8 @@ def test_jax_load_weights_reads_two_rank_blob(driver_runs):
 
 # ----------------------------------------------------------- (e) refusals
 REFUSALS = {
-    "spatial_shards": (["--spatial_shards", "2"], NotImplementedError,
-                       "A17"),
+    "spatial_shards": (["--spatial_shards", "2", "--device", "cuda"],
+                       ValueError, "CUDA card"),
     "more_ranks_than_cards": (["--num_devices", "2", "--device", "cuda"],
                               ValueError, "CUDA card"),
     "multihost_without_launcher": (["--multihost"], RuntimeError,
@@ -751,7 +751,8 @@ def test_driver_refuses(name, tmp_path, monkeypatch):
     """Each refused setting raises before a process is spawned or a file
     written."""
     extra, error, match = REFUSALS[name]
-    if name == "more_ranks_than_cards" and torch.cuda.device_count() >= 2:
+    if name in ("more_ranks_than_cards", "spatial_shards") and \
+            torch.cuda.device_count() >= 2:
         pytest.skip("this host has two cards")
     for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
         monkeypatch.delenv(key, raising=False)
@@ -765,12 +766,12 @@ def test_driver_refuses(name, tmp_path, monkeypatch):
 
 
 def test_create_mesh_refusals(monkeypatch):
-    """The library refuses what the driver does: spatial sharding, and
-    ranks without processes; one process without a group changes no
+    """The library refuses what the driver does: spatial ranks, and data
+    ranks, without processes; one process without a group changes no
     step."""
     for key in ("RANK", "WORLD_SIZE"):
         monkeypatch.delenv(key, raising=False)
-    with pytest.raises(NotImplementedError, match="A17"):
+    with pytest.raises(ValueError, match="torchrun"):
         create_mesh(num_spatial=2, device="cpu")
     with pytest.raises(ValueError, match="torchrun"):
         create_mesh(num_data=2, device="cpu")
