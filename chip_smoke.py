@@ -13,14 +13,16 @@ checkpoint, a ``--device_normalize`` pass), drives the evaluation and demo
 entry points (``efficientdet_tpu_torch.eval.driver`` at batch 8 and 32,
 with and without the fused backbone, the card's f32 APs against the CPU's,
 and ``efficientdet_tpu_torch.demo.Detect``), builds the C++ JPEG batch
-pipeline (``efficientdet_tpu_torch.native``, g++ and libjpeg; where the
-host has no libjpeg it says so and checks the refusals) and drives both
-entry points on a VOC tree of JPEG files (``phase_native``), drives
+pipeline (``efficientdet_tpu_torch.native``: g++ against the host's
+libjpeg, else the vendored headers and pillow's bundled libjpeg; a failed
+build fails the run) and drives both entry points on a VOC tree of JPEG
+files with the pipeline on and off (``phase_native``), drives
 EfficientDet-D1..D7 at their published sizes (``phase_variants``: D7 at
 1636 px serving at batch 1 and 4 on the plain and fusion paths, card
 against CPU, the probability-input NMS tail, the train step at batch 2;
 D1..D6 serving at batch 1 with and without the fused backbone; each
-kernel against its plain version at those shapes), drives the mesh's
+kernel against its plain version at those shapes), the evaluation entry
+point at D7@1636 on JPEG files (``native_d7_eval``), drives the mesh's
 spatial axis (``phase_spatial``: two gloo ranks sharing the card split
 each image's height; D0@512 training and serving and D7@1636 training
 against one process, with each rank's peak memory), and times
@@ -1894,11 +1896,15 @@ def save_weights(torch, cfg, dev, state, directory: str) -> str:
 
 def run_eval(torch, argv):
     """``Evaluator(parse_args(argv)).run()``, what ``python -m
-    efficientdet_tpu_torch.eval`` runs, with every launch count set to 0
-    just before the run and read just after, and every batch's detections
-    kept -> (evaluator, summary, launches, detections per batch)."""
+    efficientdet_tpu_torch.eval`` runs, through ``run_evaluator``."""
     from efficientdet_tpu_torch.eval import driver
-    evaluator = driver.Evaluator(driver.parse_args(argv))
+    return run_evaluator(torch, driver.Evaluator(driver.parse_args(argv)))
+
+
+def run_evaluator(torch, evaluator):
+    """``evaluator.run()`` with every launch count set to 0 just before the
+    run and read just after, and every batch's detections kept ->
+    (evaluator, summary, launches, detections per batch)."""
     step, dets = evaluator.eval_fn, []
 
     def recording(images):
@@ -1906,11 +1912,15 @@ def run_eval(torch, argv):
         return dets[-1]
 
     evaluator.eval_fn = recording
-    counters = reset_launches()
-    summary = evaluator.run()
-    if evaluator.device.type == "cuda":
-        torch.cuda.synchronize()
-    return evaluator, summary, launch_counts(counters), dets
+    try:
+        counters = reset_launches()
+        summary = evaluator.run()
+        if evaluator.device.type == "cuda":
+            torch.cuda.synchronize()
+        launches = launch_counts(counters)
+    finally:
+        evaluator.eval_fn = step
+    return evaluator, summary, launches, dets
 
 
 def phase_eval(torch, dev, cfg, state, overfit_state):
@@ -2124,7 +2134,8 @@ def phase_eval(torch, dev, cfg, state, overfit_state):
 
 # The C++ batch pipeline and the entry points on files (phase_native).
 NATIVE_DEMO = os.path.join(HERE, "docs", "demo_minivoc20.jpg")
-NATIVE_TARGETS = (512, 384, 640)
+# D0's, D1's and D7's sizes, and a smaller one.
+NATIVE_TARGETS = (512, 384, 640, 1636)
 NATIVE_PIXEL_BATCH = 8
 # The C++ against its plain numpy version on the same decoded pixels: the
 # same float32 operations in the same order; 1e-5 leaves room for a
@@ -2134,6 +2145,12 @@ NATIVE_IMAGES = 64        # trainval and test copies of the demo image
 NATIVE_TRAIN_ARGV = ["--dataset", "VOC", "--network", "efficientdet-d0",
                      "--bf16", "--batch_size", "32", "--num_epoch", "2",
                      "--eval_every", "1"]
+# --native_loader on against off, in mirrored order.
+NATIVE_ALTERNATION = ("on", "off", "off", "on")
+# The eval driver at D7@1636 on files: test copies of the demo JPEG, batch.
+NATIVE_D7_IMAGES = 16
+NATIVE_D7_BATCH = 4
+NATIVE_D7_SIZE = 1636
 
 
 def splice_exif_orientation(jpeg_bytes: bytes, orientation: int) -> bytes:
@@ -2224,34 +2241,34 @@ def annotate_from_detections(root: str, det, scale: float,
 
 
 def native_build_report():
-    """Build the port's native library on this host, or find out that it
-    cannot: (built, message). A host without ``jpeglib.h`` or ``-ljpeg``
-    is a report; a failed build where they are present fails the run."""
+    """Build the port's native library on this host by the route it takes
+    (``native.libjpeg()``: the host's libjpeg, else pillow's) and log the
+    compiler's version, ``os.cpu_count()``, the route, the libjpeg's path,
+    its libjpeg-turbo version string, ``JPEG_LIB_VERSION`` and the seconds
+    of the route's probe and of the build. A failed probe, build, load or
+    self-check fails the run. Returns the ``LibJpeg``."""
     from efficientdet_tpu_torch import native
     version = subprocess.run([native.compiler(), "--version"],
                              capture_output=True, text=True, timeout=60)
     log(f"native: {native.compiler()} "
         f"{version.stdout.splitlines()[0] if version.stdout else '?'}; "
         f"os.cpu_count() {os.cpu_count()}")
-    jpeg = native.libjpeg_version()
-    if jpeg is None:
-        try:
-            native.load()
-            check(False, "native library built without a libjpeg probe")
-        except native.NativeUnavailable as e:
-            first = str(e).splitlines()
-            message = next((line for line in first if "jpeglib.h" in line),
-                           first[-1] if first else str(e))
-        check(not native.available(), "native available without libjpeg")
-        log(f"native pipeline: not built on this host ({message})")
-        return False, message
-    t0 = time.perf_counter()
-    path = native.build()
-    seconds = time.perf_counter() - t0
-    native.load()
-    log(f"native: JPEG_LIB_VERSION {jpeg}; built {path.name} in "
-        f"{seconds:.2f} s")
-    return True, None
+    try:
+        t0 = time.perf_counter()
+        jpeg = native.libjpeg()
+        t1 = time.perf_counter()
+        path = native.build(jpeg)
+        t2 = time.perf_counter()
+        native.load()
+    except native.NativeUnavailable as e:
+        raise AssertionError(f"native pipeline: not built here: {e}") from e
+    log(f"native: route {jpeg.route}; libjpeg {jpeg.path} "
+        f"({jpeg.turbo or 'no libjpeg-turbo version string'}, "
+        f"JPEG_LIB_VERSION {jpeg.version}"
+        f"{f', headers {jpeg.include}' if jpeg.include else ''}); route "
+        f"probed in {t1 - t0:.2f} s, {path.name} built in {t2 - t1:.2f} s; "
+        f"the load-time self-check decoded its JPEG exactly")
+    return jpeg
 
 
 def native_pixels(tmp: str) -> float:
@@ -2343,50 +2360,76 @@ def train_and_resume(torch, argv, tmp: str, label: str):
     return first, second
 
 
-def host_rates(torch, dev, root: str, native_on: bool):
-    """The host data path alone, no step: ``decode_resize_batch`` at the
-    driver's B=32 on 1 and ``os.cpu_count()`` threads (where it built), ``eval_batches`` over
-    the test set, an epoch of the training loader (prefetch thread
-    included), and ``to_device`` of one B=32 float32 batch."""
+def decode_rates(paths, target: int):
+    """``decode_resize_batch`` alone on ``paths`` at ``target``, on 1
+    thread and on ``default_threads(B)``, two calls each after one to warm
+    up -> {threads: img/s}."""
+    from efficientdet_tpu_torch import native
+    b = len(paths)
+    native.decode_resize_batch(paths, target)
+    out = {}
+    for threads in (1, native.default_threads(b)):
+        t0 = time.perf_counter()
+        for _ in range(2):
+            native.decode_resize_batch(paths, target, threads=threads)
+        out[threads] = 2 * b / (time.perf_counter() - t0)
+        log(f"host: decode_resize_batch alone, B={b} at {target}, "
+            f"{threads} threads: {out[threads]:.1f} img/s")
+    return out
+
+
+def host_rates(torch, dev, root: str):
+    """The host data path alone, no step: ``decode_rgb`` (libjpeg's decode
+    alone, no resize) one image after another, and ``decode_resize_batch``
+    at the driver's B=32 at 512 and 1636 (``decode_rates``); then, for
+    ``--native_loader`` on and off in ``NATIVE_ALTERNATION``'s order,
+    ``eval_batches`` over the test set, an epoch of the training loader
+    (prefetch thread included) and ``to_device`` of one B=32 float32
+    batch. Returns {'decode_rgb': img/s, 'decode': {target: {threads:
+    img/s}}, mode: {name: [one value per run]}}."""
     from efficientdet_tpu_torch import native
     from efficientdet_tpu_torch.data import DataLoader, to_device
     from efficientdet_tpu_torch.data.loader import eval_batches
     from efficientdet_tpu_torch.train import driver
-    mode = "on" if native_on else "off"
-    path = "native" if native_on else "Python (cv2)"
     args = driver.parse_args(NATIVE_TRAIN_ARGV + ["--dataset_root", root])
     test_ds = driver.build_dataset(args, False, IMAGE_SIZE)
+    train_ds = driver.build_dataset(args, True, IMAGE_SIZE)
     b = min(args.batch_size, len(test_ds))
-    out = {}
-    if native_on:
-        paths = [test_ds.image_path(i) for i in range(b)]
-        native.decode_resize_batch(paths, IMAGE_SIZE)
-        for threads in (1, os.cpu_count()):
-            t0 = time.perf_counter()
-            for _ in range(3):
-                native.decode_resize_batch(paths, IMAGE_SIZE, threads=threads)
-            out[f"decode_{threads}"] = 3 * b / (time.perf_counter() - t0)
-            log(f"host: decode_resize_batch alone, B={b} at {IMAGE_SIZE}, "
-                f"{threads} threads: {out[f'decode_{threads}']:.1f} img/s")
+    paths = [test_ds.image_path(i) for i in range(b)]
     t0 = time.perf_counter()
-    n = sum(len(idx) for idx, _, _ in eval_batches(
-        test_ds, b, image_size=IMAGE_SIZE, native=mode))
-    out["eval_batches"] = n / (time.perf_counter() - t0)
-    loader = DataLoader(driver.build_dataset(args, True, IMAGE_SIZE), b,
-                        native=mode, image_size=IMAGE_SIZE, flip_prob=0.5,
-                        seed=args.seed)
-    t0 = time.perf_counter()
-    batches = list(loader)
-    out["loader"] = len(batches) * b / (time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    to_device(batches[0], dev)
-    torch.cuda.synchronize()
-    out["to_device_ms"] = (time.perf_counter() - t0) * 1e3
-    log(f"host: {path} path alone, B={b} at {IMAGE_SIZE}: eval_batches "
-        f"{out['eval_batches']:.1f} img/s, training loader "
-        f"{out['loader']:.1f} img/s (epoch of {len(batches) * b}); "
-        f"to_device of one {batches[0]['images'].nbytes / 2 ** 20:.0f} MiB "
-        f"batch {out['to_device_ms']:.1f} ms")
+    for p in paths:
+        native.decode_rgb(p)
+    out = {"decode_rgb": b / (time.perf_counter() - t0)}
+    log(f"host: decode_rgb alone (libjpeg's decode, no resize), {b} "
+        f"images on 1 thread: {out['decode_rgb']:.1f} img/s")
+    out["decode"] = {t: decode_rates(paths, t)
+                     for t in (IMAGE_SIZE, NATIVE_D7_SIZE)}
+    for mode in NATIVE_ALTERNATION:
+        rates = out.setdefault(mode, {"eval_batches": [], "loader": [],
+                                      "to_device_ms": []})
+        t0 = time.perf_counter()
+        n = sum(len(idx) for idx, _, _ in eval_batches(
+            test_ds, b, image_size=IMAGE_SIZE, native=mode))
+        rates["eval_batches"].append(n / (time.perf_counter() - t0))
+        loader = DataLoader(train_ds, b, native=mode, image_size=IMAGE_SIZE,
+                            flip_prob=0.5, seed=args.seed)
+        check(loader.native_active == (mode == "on"),
+              f"host_rates: loader native {loader.native_active} under "
+              f"{mode}")
+        t0 = time.perf_counter()
+        batches = list(loader)
+        rates["loader"].append(len(batches) * b / (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        to_device(batches[0], dev)
+        torch.cuda.synchronize()
+        rates["to_device_ms"].append((time.perf_counter() - t0) * 1e3)
+        log(f"host: --native_loader {mode} path alone, B={b} at "
+            f"{IMAGE_SIZE}: eval_batches {rates['eval_batches'][-1]:.1f} "
+            f"img/s, training loader {rates['loader'][-1]:.1f} img/s (epoch "
+            f"of {len(batches) * b}); to_device of one "
+            f"{batches[0]['images'].nbytes / 2 ** 20:.0f} MiB batch "
+            f"{rates['to_device_ms'][-1]:.1f} ms")
     return out
 
 
@@ -2394,65 +2437,52 @@ def phase_native(torch, dev, profile_dir=None):
     """The port's C++ batch pipeline (``efficientdet_tpu_torch.native``)
     and both entry points on a VOC tree of JPEG files, on the card:
 
-    - the library is built with the host's C++ compiler (its version, the
-      build time, ``os.cpu_count()`` and libjpeg's ``JPEG_LIB_VERSION``
-      logged); where the host has no ``jpeglib.h`` or ``-ljpeg`` that is
-      reported, ``--native_loader on`` must raise with the compiler's
-      error and ``auto`` must take the Python path, counting no native
-      batch; a failed build where libjpeg is there fails the run;
-    - where it built: its pixels at 512, 384 and 640 against the plain
-      numpy version (``NATIVE_PLAIN_TOL``) and an EXIF-6 copy refused;
+    - the library is built by the route this host takes (``system``: its
+      own libjpeg; ``pillow``: the vendored headers and pillow's bundled
+      libjpeg), which is logged with the compiler's version, the build
+      time, ``os.cpu_count()``, the libjpeg's path, version string and
+      ``JPEG_LIB_VERSION``; a failed build or self-check fails the run;
+    - its pixels at ``NATIVE_TARGETS`` against the plain numpy version
+      (``NATIVE_PLAIN_TOL``) and an EXIF-6 copy refused;
     - a VOC tree of 64 trainval and 64 test copies of the repository's
       demo JPEG with boxes written here; ``python -m
-      efficientdet_tpu_torch.train --dataset VOC`` (``--native_loader
-      on`` where it built, ``auto`` otherwise) at D0@512 bf16, B=32, two
-      epochs and a resumed epoch 1 checked as ``phase_driver`` checks it,
-      its img/s, native batches and fallbacks (0);
+      efficientdet_tpu_torch.train --dataset VOC --native_loader on`` at
+      D0@512 bf16, B=32, two epochs and a resumed epoch 1 checked as
+      ``phase_driver`` checks it, every batch native and no fallback;
+      then one epoch each with ``--native_loader`` in
+      ``NATIVE_ALTERNATION``'s order, its epoch img/s printed;
     - ``--augment full`` for one epoch where cv2 imports; where it does
       not, it must raise before the first step, naming cv2;
     - ``python -m efficientdet_tpu_torch.eval --dataset VOC`` at B=8 and
-      32 with and without ``--fused_backbone``, in mirrored order: one NMS
-      launch per batch, 15 MBConv launches per fused batch (none
-      otherwise), no fusion launch, every detection finite and inside the
-      image; then f32 at threshold 0 on 8 test images on the card and with
-      ``--device cpu`` on the same batches, their ground truth rewritten
-      to the card's top detections of a first pass (so the mAP is not 0):
-      the mAP and each class's AP within ``EVAL_AP_TOL``;
+      32 with and without ``--fused_backbone``, ``on`` and ``off``
+      alternated, in mirrored order: one NMS launch per batch, 15 MBConv
+      launches per fused batch (none otherwise), no fusion launch, every
+      detection finite and inside the image; then f32 at threshold 0 on 8
+      test images on the card and with ``--device cpu`` on the same native
+      batches, their ground truth rewritten to the card's top detections
+      of a first pass (so the mAP is not 0): the mAP and each class's AP
+      within ``EVAL_AP_TOL``;
     - the host data path alone (``host_rates``); with ``profile_dir``, the
-      card's idle share over one evaluation pass.
+      card's idle share over one evaluation pass, ``on`` against ``off``.
 
-    Returns the launches of each kernel over the card's evaluation runs."""
+    The eval driver at D7@1636 on files is ``native_d7_eval``, after
+    ``phase_variants``. Returns the launches of each kernel over the
+    card's evaluation runs."""
     import math
 
-    from efficientdet_tpu_torch import native
     from efficientdet_tpu_torch.train import driver
 
-    built, error = native_build_report()
-    mode = "on" if built else "auto"
+    native_build_report()
     totals = {}
     with tempfile.TemporaryDirectory() as tmp:
-        if built:
-            native_pixels(tmp)
+        native_pixels(tmp)
         root = write_voc_copies(os.path.join(tmp, "voc"),
                                 {"trainval": NATIVE_IMAGES,
                                  "test": NATIVE_IMAGES}, SEED + 20)
         parity_root = write_voc_copies(os.path.join(tmp, "parity"),
                                        {"test": EVAL_PARITY_IMAGES},
                                        SEED + 21)
-        train_argv = NATIVE_TRAIN_ARGV + ["--dataset_root", root,
-                                          "--native_loader", mode]
-        if not built:
-            try:
-                driver.Trainer(driver.parse_args(
-                    NATIVE_TRAIN_ARGV + ["--dataset_root", root,
-                                         "--native_loader", "on",
-                                         "--save_folder",
-                                         os.path.join(tmp, "refused")]))
-                check(False, "--native_loader on trained without a library")
-            except native.NativeUnavailable as e:
-                check(error in str(e), f"--native_loader on raised {e}")
-            log("native: --native_loader on raises with the compiler's "
-                "error")
+        train_argv = NATIVE_TRAIN_ARGV + ["--dataset_root", root]
         try:
             import cv2  # noqa: F401
             has_cv2 = True
@@ -2460,24 +2490,43 @@ def phase_native(torch, dev, profile_dir=None):
             has_cv2 = False
         log(f"native: cv2 {'imports' if has_cv2 else 'does not import'} "
             f"on this host")
-        if not (built or has_cv2):
-            log("native: neither the C++ pipeline nor cv2 can decode the "
-                "tree's JPEGs here; the entry points on files are not run")
-            return totals
 
         torch.backends.cudnn.deterministic = True
         counters = reset_launches()
-        first, _ = train_and_resume(torch, train_argv,
-                                    os.path.join(tmp, "train"),
-                                    f"driver VOC --native_loader {mode}")
-        check(first["native_active"] == [built, built]
+        first, _ = train_and_resume(
+            torch, train_argv + ["--native_loader", "on"],
+            os.path.join(tmp, "train"), "driver VOC --native_loader on")
+        check(first["native_active"] == [True, True]
               and first["native_fallbacks"] == 0,
               f"driver VOC: native {first['native_active']}, fallbacks "
               f"{first['native_fallbacks']}")
+        log(f"driver VOC --native_loader on D0@512 bf16 B=32 (native "
+            f"batches): epoch img/s "
+            f"{', '.join(f'{v:.1f}' for v in first['img_s'])}; epoch loss "
+            f"{', '.join(f'{v:.4f}' for v in first['epoch_loss'])}; "
+            f"{card_summary()}")
+        train_rates = {}
+        for k, mode in enumerate(NATIVE_ALTERNATION):
+            run = driver.main(train_argv + [
+                "--native_loader", mode, "--num_epoch", "1",
+                "--save_folder", os.path.join(tmp, f"alt{k}")])
+            check_finite_summary(run, f"--native_loader {mode}")
+            check(run["native_active"] == [mode == "on"] * 2
+                  and run["native_fallbacks"] == 0,
+                  f"driver VOC --native_loader {mode}: native "
+                  f"{run['native_active']}, fallbacks "
+                  f"{run['native_fallbacks']}")
+            train_rates.setdefault(mode, []).append(run["img_s"][0])
+        for mode, ips in train_rates.items():
+            log(f"driver VOC --native_loader {mode} D0@512 bf16 B=32, one "
+                f"epoch of {NATIVE_IMAGES} JPEGs with validation: epoch "
+                f"img/s {', '.join(f'{v:.1f}' for v in ips)} "
+                f"({'/'.join(NATIVE_ALTERNATION)} order)")
         if has_cv2:
             full = driver.main(train_argv + [
-                "--augment", "full", "--num_epoch", "1",
-                "--save_folder", os.path.join(tmp, "full")])
+                "--native_loader", "on", "--augment", "full",
+                "--num_epoch", "1", "--save_folder",
+                os.path.join(tmp, "full")])
             check_finite_summary(full, "--augment full")
             log(f"driver VOC --augment full D0@512 bf16 B=32: epoch img/s "
                 f"{full['img_s'][0]:.1f}, loss {full['epoch_loss'][0]:.4f} "
@@ -2495,24 +2544,21 @@ def phase_native(torch, dev, profile_dir=None):
         launches = launch_counts(counters)
         check(not any(launches.values()),
               f"kernels launched on the driver's path: {launches}")
-        log(f"driver VOC --native_loader {mode} D0@512 bf16 B=32 "
-            f"({'native' if built else 'Python'} batches): epoch img/s "
-            f"{', '.join(f'{v:.1f}' for v in first['img_s'])}; epoch loss "
-            f"{', '.join(f'{v:.4f}' for v in first['epoch_loss'])}; "
-            f"{card_summary()}")
 
         cfg_blob = first["checkpoints"][-1]
-        runs = [(b, fused) for fused in (False, True) for b in EVAL_BATCHES]
+        runs = [(b, fused, mode) for fused in (False, True)
+                for b in EVAL_BATCHES for mode in ("on", "off")]
         rates = {run: [] for run in runs}
-        for b, fused in runs + runs[::-1]:
+        for b, fused, mode in runs + runs[::-1]:
             evaluator, summary, launches, dets = run_eval(
                 torch, ["--dataset", "VOC", "--dataset_root", root,
                         "--weight", cfg_blob, "--bf16", "--batch_size",
                         str(b), "--native_loader", mode]
                 + (["--fused_backbone"] if fused else []))
-            check(summary["native_active"] == built
+            check(summary["native_active"] == (mode == "on")
                   and summary["native_fallbacks"] == 0,
-                  f"eval VOC: native {summary['native_active']}, fallbacks "
+                  f"eval VOC --native_loader {mode}: native "
+                  f"{summary['native_active']}, fallbacks "
                   f"{summary['native_fallbacks']}")
             batches = math.ceil(summary["images"] / b)
             want = {"nms_select": batches, "fuse_topdown": 0,
@@ -2526,8 +2572,8 @@ def phase_native(torch, dev, profile_dir=None):
                 check_detections(torch, det, b)
             for name, n in launches.items():
                 totals[name] = totals.get(name, 0) + n
-            rates[(b, fused)].append(summary["img_s"])
-        for (b, fused), ips in rates.items():
+            rates[(b, fused, mode)].append(summary["img_s"])
+        for (b, fused, mode), ips in rates.items():
             log(f"eval driver VOC --native_loader {mode} D0@512 bf16 B={b}"
                 f"{' --fused_backbone' if fused else ''}: "
                 f"{', '.join(f'{v:.1f}' for v in ips)} img/s "
@@ -2536,7 +2582,7 @@ def phase_native(torch, dev, profile_dir=None):
         argv = ["--dataset", "VOC", "--dataset_root", parity_root,
                 "--weight", cfg_blob, "--batch_size",
                 str(EVAL_PARITY_IMAGES), "--threshold", "0.0",
-                "--native_loader", mode]
+                "--native_loader", "on"]
         # The parity tree's ground truth becomes the card's own top
         # detections, so that the APs held below are not all 0.
         _, _, first_launches, first_dets = run_eval(torch, argv)
@@ -2550,6 +2596,8 @@ def phase_native(torch, dev, profile_dir=None):
         check(card_launches["nms_select"] == 1 and not any(
             cpu_launches.values()), f"f32 eval VOC launches: card "
             f"{card_launches}, cpu {cpu_launches}")
+        check(card["native_active"] and cpu["native_active"],
+              "f32 eval VOC: not on native batches")
         for name, n in card_launches.items():
             totals[name] += n
         ap_err = max(abs(card["aps"][c][0] - cpu["aps"][c][0])
@@ -2566,22 +2614,96 @@ def phase_native(torch, dev, profile_dir=None):
         check(card["mAP"] > 0, f"f32 eval VOC: mAP {card['mAP']} against "
               "the card's own detections")
         log(f"eval VOC f32, card against CPU, {EVAL_PARITY_IMAGES} images "
-            f"at threshold 0 on the same {'native' if built else 'Python'} "
-            f"batches, the ground truth the card's top detections: "
-            f"{card['detections']} detections each; mAP {card['mAP']:.6f} "
-            f"vs {cpu['mAP']:.6f}, class APs within {ap_err:.3g}")
+            f"at threshold 0 on the same native batches, the ground truth "
+            f"the card's top detections: {card['detections']} detections "
+            f"each; mAP {card['mAP']:.6f} vs {cpu['mAP']:.6f}, class APs "
+            f"within {ap_err:.3g}")
 
-        host_rates(torch, dev, root, built)
+        host_rates(torch, dev, root)
         if profile_dir:
             from efficientdet_tpu_torch.eval import driver as eval_driver
-            evaluator = eval_driver.Evaluator(eval_driver.parse_args(
-                ["--dataset", "VOC", "--dataset_root", root, "--weight",
-                 cfg_blob, "--bf16", "--batch_size", "32",
-                 "--native_loader", mode]))
-            evaluator.run()
-            profile_steps(torch, f"eval_pass_voc_{mode}", evaluator.run, 1,
-                          profile_dir)
+            for mode in ("on", "off"):
+                evaluator = eval_driver.Evaluator(eval_driver.parse_args(
+                    ["--dataset", "VOC", "--dataset_root", root, "--weight",
+                     cfg_blob, "--bf16", "--batch_size", "32",
+                     "--native_loader", mode]))
+                evaluator.run()
+                profile_steps(torch, f"eval_pass_voc_{mode}", evaluator.run,
+                              1, profile_dir)
     return totals
+
+
+def save_voc_weights(torch, cfg, dev, state, directory: str) -> str:
+    """``save_weights`` of an 80-class ``state`` as a VOC (20-class)
+    blob: the class head keeps, for each anchor, the rows of the first 20
+    classes (its channels are anchor-major, ``retina_head.py``)."""
+    import dataclasses
+
+    from efficientdet_tpu_torch.data import VOC_CLASSES
+    n = len(VOC_CLASSES)
+    voc = dataclasses.replace(cfg, num_classes=n)
+    sliced = dict(state)
+    for key in ("bbox_head.retina_cls.weight", "bbox_head.retina_cls.bias"):
+        w = state[key]
+        anchors = w.shape[0] // cfg.num_classes
+        sliced[key] = w.reshape(anchors, cfg.num_classes, *w.shape[1:])[
+            :, :n].reshape(anchors * n, *w.shape[1:]).clone()
+    return save_weights(torch, voc, dev, sliced, directory)
+
+
+def native_d7_eval(torch, dev, blob: str):
+    """``python -m efficientdet_tpu_torch.eval --dataset VOC`` at D7@1636
+    bf16, B=4, on ``NATIVE_D7_IMAGES`` test copies of the demo JPEG, from
+    the seeded D7 weights of ``phase_variants`` (``save_voc_weights``),
+    ``--native_loader`` on and off in ``NATIVE_ALTERNATION``'s order after
+    one pass with 'on' to warm up, one evaluator per mode: every batch
+    native under 'on' and no fallback, one NMS launch per batch, no fusion
+    or MBConv launch, every detection finite and inside the 1636 px image. Returns (launches over the runs,
+    {mode: [img/s per run]})."""
+    import math
+
+    from efficientdet_tpu_torch.eval import driver as eval_driver
+    t0 = time.perf_counter()
+    totals, rates = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = write_voc_copies(tmp, {"test": NATIVE_D7_IMAGES}, SEED + 22)
+        evaluators = {mode: eval_driver.Evaluator(eval_driver.parse_args(
+            ["--dataset", "VOC", "--dataset_root", root, "--weight", blob,
+             "--bf16", "--batch_size", str(NATIVE_D7_BATCH),
+             "--native_loader", mode])) for mode in ("on", "off")}
+        check(evaluators["on"].input_size == NATIVE_D7_SIZE,
+              f"D7 eval at {evaluators['on'].input_size} px")
+        # One pass to warm up, checked and counted but not timed.
+        for k, mode in enumerate(("on",) + NATIVE_ALTERNATION):
+            _, summary, launches, dets = run_evaluator(torch,
+                                                       evaluators[mode])
+            batches = math.ceil(NATIVE_D7_IMAGES / NATIVE_D7_BATCH)
+            check(summary["native_active"] == (mode == "on")
+                  and summary["native_fallbacks"] == 0,
+                  f"eval D7 --native_loader {mode}: native "
+                  f"{summary['native_active']}, fallbacks "
+                  f"{summary['native_fallbacks']}")
+            want = {"nms_select": batches, "fuse_topdown": 0,
+                    "fuse_bottomup": 0, "fused_expand_dw_flat": 0,
+                    "fused_expand_dw": 0}
+            check(launches == want, f"eval D7 --native_loader {mode}: "
+                  f"launches {launches}, want {want}")
+            check(len(dets) == batches, f"eval D7: {len(dets)} batches")
+            for det in dets:
+                check_detections(torch, det, NATIVE_D7_BATCH, NATIVE_D7_SIZE)
+            for name, n in launches.items():
+                totals[name] = totals.get(name, 0) + n
+            if k:
+                rates.setdefault(mode, []).append(summary["img_s"])
+        del evaluators
+    torch.cuda.empty_cache()
+    for mode, ips in rates.items():
+        log(f"eval driver VOC --native_loader {mode} D7@{NATIVE_D7_SIZE} "
+            f"bf16 B={NATIVE_D7_BATCH}: {', '.join(f'{v:.2f}' for v in ips)}"
+            f" img/s ({NATIVE_D7_IMAGES} JPEG files, whole evaluation); "
+            f"{card_summary()}")
+    log(f"native D7 eval phase {time.perf_counter() - t0:.1f} s")
+    return totals, rates
 
 
 # ------------------------------------------------------- phase_variants
@@ -3105,7 +3227,7 @@ def variant_kernel_times(torch, dev, candidates):
     return times
 
 
-def phase_variants(torch, dev):
+def phase_variants(torch, dev, blob_dir: str):
     """EfficientDet-D1..D7 at their published sizes, 80 classes, seeded
     weights with calibrated BN statistics, bf16 and channels_last unless
     said otherwise. D7@1636 (B6, W_bifpn 384, D_bifpn 8, A = 498,510):
@@ -3116,8 +3238,10 @@ def phase_variants(torch, dev):
     on the plain and fused-backbone paths, f32 fused against module. Every
     kernel launch of those runs is counted (the counts set to 0 first) and
     checked per step; then each kernel is held against its plain version
-    at this phase's shapes and timed beside its bound. Returns
-    {launches, timings, errors}."""
+    at this phase's shapes and timed beside its bound. The seeded D7
+    weights are also saved into ``blob_dir`` as a VOC blob
+    (``save_voc_weights``) for ``native_d7_eval``. Returns {launches,
+    timings, errors, d7_voc_blob, ...}."""
     from efficientdet_tpu_torch import DetectorConfig
     t0 = time.perf_counter()
     cfg = DetectorConfig(num_classes=80, network=D7).resolve()
@@ -3128,6 +3252,7 @@ def phase_variants(torch, dev):
     cpu = d7_card_vs_cpu(torch, dev, cfg, state, counters)
     probability = d7_probability_path(torch, dev, cfg, state, counters)
     train = d7_training(torch, dev, cfg, state, counters)
+    d7_voc_blob = save_voc_weights(torch, cfg, dev, state, blob_dir)
     del state
     torch.cuda.empty_cache()
     variants = variants_d1_d6(torch, dev, counters)
@@ -3139,7 +3264,7 @@ def phase_variants(torch, dev):
     log(f"variants phase {seconds:.1f} s")
     return dict(launches=launches, d7=d7, cpu=cpu, probability=probability,
                 train=train, variants=variants, errors=errors, times=times,
-                seconds=seconds)
+                seconds=seconds, d7_voc_blob=d7_voc_blob)
 
 
 def module_segment(torch, x, we, s0, b0, w_dw, s1, b1, stride):
@@ -3471,7 +3596,11 @@ def main() -> int:
     native_launches = phase_native(torch, dev,
                                    args.out if args.profile else None)
     log(f"native phase {time.perf_counter() - t0:.1f} s")
-    variants = phase_variants(torch, dev)
+    with tempfile.TemporaryDirectory() as blob_dir:
+        variants = phase_variants(torch, dev, blob_dir)
+        native_d7, _ = native_d7_eval(torch, dev, variants["d7_voc_blob"])
+    for name, n in native_d7.items():
+        native_launches[name] = native_launches.get(name, 0) + n
     spatial = phase_spatial(torch, dev, cfg, state,
                             variants["train"].pop("job"))
     times = phase_kernel_times(torch, dev, nms_sets)
@@ -3496,7 +3625,8 @@ def main() -> int:
                  "fuse_bottomup": eval_launches["fuse_bottomup"],
                  "mbconv_fused": eval_launches["fused_expand_dw_flat"]
                  + eval_launches["fused_expand_dw"]}
-    # Launches over phase_native's evaluation runs on the VOC tree.
+    # Launches over the eval driver's runs on JPEG files: phase_native's
+    # at D0@512 and native_d7_eval's at D7@1636.
     native_runs = {"nms_select": native_launches.get("nms_select", 0),
                    "fuse_topdown": native_launches.get("fuse_topdown", 0),
                    "fuse_bottomup": native_launches.get("fuse_bottomup", 0),

@@ -65,12 +65,14 @@ def native_active(dataset, image_size: int, native: str) -> bool:
 
 
 def data_path(active: bool, batch_size: int) -> str:
-    """One line naming the path that makes the batches."""
+    """One line naming the path that makes the batches, and for the C++
+    pipeline the libjpeg it was built against and by which route."""
     if active:
         from .. import native as native_mod
         return (f"data path: native C++ pipeline (JPEG decode, resize, flip, "
                 f"normalize, pad), up to "
-                f"{native_mod.default_threads(batch_size)} threads")
+                f"{native_mod.default_threads(batch_size)} threads, libjpeg: "
+                f"{native_mod.libjpeg()}")
     return "data path: Python (dataset[i] through its transform), one thread"
 
 

@@ -82,8 +82,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--native_loader", default="auto",
                    choices=["auto", "on", "off"],
                    help="C++ decode pipeline for eval batches "
-                        "(efficientdet_tpu_torch.native, built with g++ and "
-                        "libjpeg at first use): auto = where it builds and "
+                        "(efficientdet_tpu_torch.native, built with g++ at "
+                        "first use against the host's libjpeg, else "
+                        "pillow's): auto = where it builds and "
                         "the dataset reads JPEG files; on = raise where it "
                         "cannot")
     p.add_argument("--device", default="cuda",

@@ -147,8 +147,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--native_loader", default="auto",
                    choices=["auto", "on", "off"],
                    help="C++ decode/augment pipeline "
-                        "(efficientdet_tpu_torch.native, built with g++ and "
-                        "libjpeg at first use); auto = use when buildable "
+                        "(efficientdet_tpu_torch.native, built with g++ at "
+                        "first use against the host's libjpeg, else "
+                        "pillow's); auto = use when buildable "
                         "and the dataset reads JPEG files, on = raise "
                         "otherwise. The training loader stays in Python "
                         "under --augment full")

@@ -81,8 +81,10 @@ def jax_native(port_native, jax_native_private):
 
 @pytest.fixture
 def fresh_port_native(monkeypatch):
-    """The port's library state reset for this test (and put back after)."""
+    """The port's library state and route reset for this test (and put
+    back after)."""
     monkeypatch.setattr(native, "_result", None)
+    monkeypatch.setattr(native, "_libjpeg", None)
     return native
 
 
@@ -460,6 +462,6 @@ def test_library_name_follows_source_and_flags(port_native, monkeypatch):
 
 def test_libjpeg_version_probe(port_native, monkeypatch):
     """The probe reads the header's version, and None without a compiler."""
-    assert native.libjpeg_version() >= 62
+    assert native.libjpeg_version().version >= 62
     monkeypatch.setenv("CXX", "no-such-compiler")
     assert native.libjpeg_version() is None
