@@ -11,7 +11,9 @@ is ``python -m efficientdet_tpu_torch.train`` (``train/driver.py``), with
 ``.pth`` checkpoints that the JAX package reads (``utils/checkpoint.py``)
 and data-parallel training over ``torch.distributed`` (``parallel/``);
 ``python -m efficientdet_tpu_torch.eval`` (``eval/``: VOC mAP, COCO AP)
-and ``python -m efficientdet_tpu_torch.demo`` evaluate and serve them.
+and ``python -m efficientdet_tpu_torch.demo`` evaluate and serve them,
+on the card through CUDA graphs of the serving step
+(``train/graphed.py::graphed_eval_step``, the port's ``jax.jit`` of it).
 The configuration, the host data pipeline (datasets, transforms, the full
 augmentation recipe, loader, and the C++ JPEG batch pipeline of
 ``native/``) and the weight bridge are the port's own copies of the JAX
@@ -25,9 +27,11 @@ from .config import (EFFICIENTDET, MODEL_MAP, DetectorConfig,
 from .data import to_device
 from .models import EfficientDet, fused_backbone_forward
 from .train import (OptimizerConfig, PlateauScheduler, create_train_state,
-                    make_eval_step, make_loss_step, make_train_step)
+                    graphed_eval_step, make_eval_step, make_loss_step,
+                    make_train_step)
 
 __all__ = ["EFFICIENTDET", "MODEL_MAP", "DetectorConfig", "EfficientDet",
            "OptimizerConfig", "PlateauScheduler", "create_train_state",
-           "fused_backbone_forward", "get_model_params", "make_eval_step",
-           "make_loss_step", "make_train_step", "round_filters", "to_device"]
+           "fused_backbone_forward", "get_model_params", "graphed_eval_step",
+           "make_eval_step", "make_loss_step", "make_train_step",
+           "round_filters", "to_device"]

@@ -10,7 +10,8 @@ Counterpart of the JAX package's ``demo.py``:
 
 The whole image->detections path (top-K, decode, clip, NMS) runs on the
 device with fixed shapes, on the CUDA card unless ``--device`` says
-otherwise (a card that is absent raises); boxes are mapped back to
+otherwise (a card that is absent raises), there replayed from a CUDA graph
+(``graphed_eval_step``, as ``demo.py`` jits the step); boxes are mapped back to
 original-image pixels on the host (reference demo.py:71-130). ``cv2`` is
 imported only where a file or a camera is read or written, or an image
 really resized.
@@ -31,7 +32,7 @@ from .config import EFFICIENTDET, DetectorConfig
 from .data import VOC_CLASSES, eval_transforms
 from .device import default_device
 from .models import EfficientDet
-from .train import make_eval_step
+from .train import graphed_eval_step, make_eval_step
 from .utils import checkpoint as ckpt
 from .utils.visualization import draw_detections
 
@@ -88,9 +89,9 @@ class Detect:
         model = EfficientDet(cfg, device=self.device)
         ckpt.load_weights(args.weight, model)
         self.model = model.eval().to(memory_format=torch.channels_last)
-        self.eval_step = make_eval_step(
+        self.eval_step = graphed_eval_step(make_eval_step(
             self.model, cfg,
-            fused_backbone=getattr(args, "fused_backbone", False))
+            fused_backbone=getattr(args, "fused_backbone", False)))
         self.label_names = (list(VOC_CLASSES)
                             if args.dataset_classes == "VOC" else None)
 

@@ -8,7 +8,10 @@ detection budget go into the configuration; the model is built on
 raises), in bf16 with ``--bf16``, in ``channels_last``, and loads its
 weights from a port blob or a reference ``.pth``; every batch goes through
 ``make_eval_step``, whose NMS is the CUDA kernel on the card, and with
-``--fused_backbone`` the backbone through the fused-MBConv kernel. VOC and
+``--fused_backbone`` the backbone through the fused-MBConv kernel. On the
+card that step is served from a CUDA graph (``graphed_eval_step``, as
+``eval.py`` jits it): ``eval_batches`` pads the last batch, so a pass
+captures one graph and replays it for every batch. VOC and
 synthetic sets print the per-class APs and ``mAP@{eval_iou}``; COCO prints
 the COCO stats and, with ``--results_json``, writes the results JSON (and
 runs pycocotools' COCOeval on it where pycocotools imports). Run examples:
@@ -42,7 +45,7 @@ from ..data import (CocoDataset, SyntheticDetection, VOCDetection,
 from ..data.loader import EvalBatches, eval_batches, prefetch_iter
 from ..device import default_device
 from ..models import EfficientDet
-from ..train import make_eval_step
+from ..train import graphed_eval_step, make_eval_step
 from ..utils import checkpoint as ckpt
 from .coco_eval import CocoEvaluator, write_coco_results
 from .voc_eval import evaluate_model
@@ -149,8 +152,8 @@ class Evaluator:
             device=self.device)
         ckpt.load_weights(args.weight, model)
         self.model = model.eval().to(memory_format=torch.channels_last)
-        self.eval_step = make_eval_step(self.model, self.cfg,
-                                        fused_backbone=args.fused_backbone)
+        self.eval_step = graphed_eval_step(make_eval_step(
+            self.model, self.cfg, fused_backbone=args.fused_backbone))
 
     def batches(self) -> EvalBatches:
         """A pass of ``eval_batches`` over the dataset, as ``eval.py``

@@ -60,6 +60,7 @@ from ..device import default_device
 from ..models.efficientnet import MBConvBlock
 from ..models.layers import BatchNorm
 from ..ops.nms import Detections
+from ..train.graphed import GraphedEvalStep, graphed_eval_step
 from .spatial import SpatialPlan, all_gather, band
 
 LOSS_KEYS = ("loss", "cls_loss", "reg_loss")
@@ -383,14 +384,23 @@ def shard_eval_step(eval_step: Callable[[torch.Tensor], Detections],
     0 alone runs the NMS tail (one launch of the kernel per data rank), and
     one all-gather over the whole group keeps those ranks' detections, in
     data rank order. A fused-backbone step refuses the spatial axis when
-    called (``fused_serving.SPATIAL_REFUSAL``). Without a group it returns
-    ``eval_step`` itself."""
+    called (``fused_serving.SPATIAL_REFUSAL``). On the data axis alone a
+    ``make_eval_step`` step (one with ``.model``) is served from CUDA
+    graphs on the card (``graphed_eval_step``, as JAX jits it) and the
+    all-gather runs after the replay; any other callable runs as it is.
+    Under the spatial axis the step stays eager, as its halo exchanges
+    cannot be captured: a graphed step runs the eager step it holds.
+    Without a group it returns ``eval_step`` itself."""
     if mesh.group is None:
         return eval_step
     spatial = mesh.num_spatial > 1
+    if spatial and isinstance(eval_step, GraphedEvalStep):
+        eval_step = eval_step.eval_step
     model, plans = getattr(eval_step, "model", None), {}
     if spatial and model is None:
         raise ValueError("the spatial axis needs make_eval_step's step")
+    if not spatial and model is not None:
+        eval_step = graphed_eval_step(eval_step)
 
     def sharded_step(images: torch.Tensor) -> Detections:
         if not spatial:

@@ -25,7 +25,7 @@ from efficientdet_tpu_torch import fused_backbone_forward, make_eval_step
 from efficientdet_tpu_torch.kernels import mbconv_kernel as mk
 from efficientdet_tpu_torch.models.layers import BatchNorm
 from test_torch_port_slice import (CFG, SIZE, _nhwc, _port,  # noqa: F401
-                                   jax_model)
+                                   jax_model, one_thread)
 
 # The five shapes of tests/test_kernels.py's Pallas MBConv test: (H, W,
 # Cin, Ce, K, stride), block-1..4 shape classes and a non-power-of-2 map.
@@ -391,3 +391,29 @@ def test_rounding_fixups_catch_every_order_flip(cin):
     flips = want != got
     assert not (flips & ~flagged).any()
     assert flagged.mean() < 0.03
+
+
+@pytest.mark.parametrize("shape", [(16, 96, 3, 2, 24), (112, 672, 5, 1, 8),
+                                   (576, 3456, 3, 1, 6)], ids=str)
+def test_bf16_criterion_takes_any_order_and_refuses_the_unrounded(
+        shape, one_thread):
+    """``chip_smoke.py``'s bf16 criterion (ROADMAP C8) on the CPU, at block
+    shapes (Cin, Ce, K, stride, H) of b0 and b6: the plain version with the
+    expand summed in k order and with it as one matmul both meet it, on
+    both contracts, with at most ``NEAR_SHARE_MAX`` of y near a rounding
+    midpoint; the plain version without y's bf16 round fails it."""
+    import chip_smoke
+    gen = torch.Generator().manual_seed(5)
+    x, *w = chip_smoke.mbconv_inputs(torch, gen, 1, shape, torch.bfloat16)
+    stride = shape[3]
+    for plain, prepare in ((mk.fused_expand_dw_plain, mk._prepare_v1),
+                           (mk.fused_expand_dw_flat_plain,
+                            mk._prepare_flat)):
+        z64, allowance, near = chip_smoke.bf16_reference(torch, prepare, x,
+                                                         *w, stride)
+        assert near <= chip_smoke.NEAR_SHARE_MAX
+        for sequential in (True, False):
+            z, _ = plain(x, *w, stride=stride, sequential=sequential)
+            assert chip_smoke.bf16_agreement(z, z64, allowance)[2]
+        unrounded = chip_smoke.unrounded_plain(mk, prepare, x, *w, stride)
+        assert not chip_smoke.bf16_agreement(unrounded, z64, allowance)[2]

@@ -77,6 +77,17 @@ def _random_variables(shapes, rng):
     return tree
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the test: beside the other test workers, a
+    process of one thread per core spins in its thread barriers and slows
+    many times."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def jax_model():
     model = JaxEfficientDet(config=CFG)
