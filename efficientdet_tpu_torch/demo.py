@@ -34,6 +34,7 @@ from .device import default_device
 from .models import EfficientDet
 from .train import graphed_eval_step, make_eval_step
 from .utils import checkpoint as ckpt
+from .utils import tracing
 from .utils.visualization import draw_detections
 
 
@@ -86,9 +87,12 @@ class Detect:
                                   threshold=args.score_threshold,
                                   iou_threshold=args.iou_threshold)
         self.cfg = cfg
-        model = EfficientDet(cfg, device=self.device)
-        ckpt.load_weights(args.weight, model)
-        self.model = model.eval().to(memory_format=torch.channels_last)
+        with tracing.span("setup.build"):
+            model = EfficientDet(cfg, device=self.device)
+        with tracing.span("setup.load_weights"):
+            ckpt.load_weights(args.weight, model)
+        with tracing.span("setup.build"):
+            self.model = model.eval().to(memory_format=torch.channels_last)
         self.eval_step = graphed_eval_step(make_eval_step(
             self.model, cfg,
             fused_backbone=getattr(args, "fused_backbone", False)))

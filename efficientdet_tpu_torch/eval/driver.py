@@ -47,6 +47,7 @@ from ..device import default_device
 from ..models import EfficientDet
 from ..train import graphed_eval_step, make_eval_step
 from ..utils import checkpoint as ckpt
+from ..utils import tracing
 from .coco_eval import CocoEvaluator, write_coco_results
 from .voc_eval import evaluate_model
 
@@ -147,11 +148,15 @@ class Evaluator:
         self.native_active = batches.native_active
         print(batches.data_path())
 
-        model = EfficientDet(
-            self.cfg, dtype=torch.bfloat16 if args.bf16 else torch.float32,
-            device=self.device)
-        ckpt.load_weights(args.weight, model)
-        self.model = model.eval().to(memory_format=torch.channels_last)
+        with tracing.span("setup.build"):
+            model = EfficientDet(
+                self.cfg,
+                dtype=torch.bfloat16 if args.bf16 else torch.float32,
+                device=self.device)
+        with tracing.span("setup.load_weights"):
+            ckpt.load_weights(args.weight, model)
+        with tracing.span("setup.build"):
+            self.model = model.eval().to(memory_format=torch.channels_last)
         self.eval_step = graphed_eval_step(make_eval_step(
             self.model, self.cfg, fused_backbone=args.fused_backbone))
 
@@ -164,7 +169,10 @@ class Evaluator:
 
     def eval_fn(self, images: np.ndarray):
         """One host batch -> Detections on the device."""
-        return self.eval_step(torch.from_numpy(images).to(self.device))
+        with tracing.span("serve.eval_fn"):
+            with tracing.span("serve.stage"):
+                staged = torch.from_numpy(images).to(self.device)
+            return self.eval_step(staged)
 
     def run(self) -> Dict:
         """Evaluate -> {'mAP', 'aps' {label: (AP, num_annotations)}} (VOC,

@@ -34,6 +34,7 @@ from ..device import default_device
 from ..ops import anchors as anchor_ops
 from ..ops import losses as loss_ops
 from ..ops import nms as nms_ops
+from ..utils import tracing
 from .bifpn import BiFPN
 from .efficientnet import EfficientNetFeatures
 from .retina_head import RetinaHead
@@ -99,14 +100,20 @@ class EfficientDet(nn.Module):
         """Backbone + neck pyramid P3..P7, NCHW in the compute dtype;
         ``generator`` draws the drop-connect masks (training mode only)."""
         plan = self.spatial
-        feats = self.backbone(self._nchw(images), generator,
-                              None if plan is None else plan.image())
-        return self.neck(feats[-5:], plan)
+        with tracing.span("model.backbone"):
+            feats = self.backbone(self._nchw(images), generator,
+                                  None if plan is None else plan.image())
+        with tracing.span("model.bifpn"):
+            return self.neck(feats[-5:], plan)
+
+    def _head(self, features: Sequence[torch.Tensor], **kwargs):
+        with tracing.span("model.head"):
+            return self.bbox_head(features, **kwargs)
 
     def forward(self, images: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        cls_probs, box_deltas = self.bbox_head(self.extract_features(images),
-                                               plan=self.spatial)
+        cls_probs, box_deltas = self._head(self.extract_features(images),
+                                           plan=self.spatial)
         return cls_probs.float(), box_deltas.float()
 
     def train_forward(self, images: torch.Tensor,
@@ -115,31 +122,32 @@ class EfficientDet(nn.Module):
         """(cls_logits (B, A, C), box_deltas (B, A, 4)), pre-sigmoid, in the
         compute dtype; ``generator`` draws the drop-connect masks (training
         mode only)."""
-        return self.bbox_head(self.extract_features(images, generator),
-                              return_logits=True, plan=self.spatial)
+        return self._head(self.extract_features(images, generator),
+                          return_logits=True, plan=self.spatial)
 
     def train_forward_levels(self, images: torch.Tensor,
                              generator: Optional[torch.Generator] = None):
         """Per-level ``train_forward``: lists [(B, A_l, C)], [(B, A_l, 4)]
         in the compute dtype, unconcatenated, for
         ``detection_loss_from_level_logits``."""
-        return self.bbox_head(self.extract_features(images, generator),
-                              return_logits=True, per_level=True,
-                              plan=self.spatial)
+        return self._head(self.extract_features(images, generator),
+                          return_logits=True, per_level=True,
+                          plan=self.spatial)
 
     def serving_forward(self, images: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(scores (B, A) f32, classes (B, A) int32, box_deltas (B, A, 4)
         f32), with the class reduction per level inside the head."""
-        return self.bbox_head(self.extract_features(images),
-                              reduce_classes=True, plan=self.spatial)
+        return self._head(self.extract_features(images),
+                          reduce_classes=True, plan=self.spatial)
 
     def serving_from_features(self, features: Sequence[torch.Tensor]
                               ) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
         """``serving_forward`` from precomputed backbone features (NCHW)."""
-        pyramid = self.neck([f.to(self.dtype) for f in features[-5:]])
-        return self.bbox_head(pyramid, reduce_classes=True)
+        with tracing.span("model.bifpn"):
+            pyramid = self.neck([f.to(self.dtype) for f in features[-5:]])
+        return self._head(pyramid, reduce_classes=True)
 
 
 def anchors_for_config(cfg: DetectorConfig) -> torch.Tensor:

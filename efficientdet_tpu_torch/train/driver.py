@@ -54,7 +54,7 @@ import json
 import os
 import tempfile
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, Iterable, Iterator, List, Optional
 
 import torch
 
@@ -66,6 +66,7 @@ from ..parallel import (Mesh, create_mesh, launcher_env, mean_across_ranks,
                         put_batch, put_replicated, shard_loss_step,
                         shard_train_step)
 from ..utils import checkpoint as ckpt
+from ..utils import tracing
 from ..utils.visualization import MetricLogger
 from .train_lib import (OptimizerConfig, PlateauScheduler, create_train_state,
                         get_learning_rate, make_loss_step, make_train_step,
@@ -279,6 +280,17 @@ def local_ranks_to_spawn(args: argparse.Namespace) -> int:
     return procs if procs > 1 else 0
 
 
+def _waited(batches: Iterable) -> Iterator:
+    """``batches``, the wait for each inside a ``train.data_wait`` span."""
+    batches = iter(batches)
+    while True:
+        with tracing.span("train.data_wait"):
+            batch = next(batches, None)
+        if batch is None:
+            return
+        yield batch
+
+
 class Trainer:
     """Everything the driver builds before its epoch loop, and the loop.
 
@@ -426,7 +438,8 @@ class Trainer:
 
     def _profile(self, before_step: bool) -> None:
         """A torch.profiler trace of global steps 5-10 into --profile_dir,
-        on rank 0."""
+        on rank 0, with the port's spans (``utils/tracing.py``) on for
+        them."""
         if not self.args.profile_dir or not self.mesh.is_chief:
             return
         if before_step and self.global_step == 5:
@@ -434,11 +447,14 @@ class Trainer:
             if self.device.type == "cuda":
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
             self._profiler = torch.profiler.profile(activities=activities)
+            tracing.enable()
             self._profiler.start()
         elif not before_step and self.global_step == 10 and self._profiler:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self._profiler.stop()
+            tracing.disable()
+            tracing.drain()
             os.makedirs(self.args.profile_dir, exist_ok=True)
             self._profiler.export_chrome_trace(
                 os.path.join(self.args.profile_dir, "trace.json"))
@@ -450,10 +466,11 @@ class Trainer:
         args = self.args
         t0 = time.time()
         loss_sum, steps, first = None, 0, None
-        for it, batch in enumerate(self.loader):
-            batch = put_batch(batch, self.mesh)
+        for it, batch in enumerate(_waited(self.loader)):
             self._profile(before_step=True)
-            metrics = self.train_step(self.state, batch, args.seed + 1)
+            with tracing.span("train.step"):
+                batch = put_batch(batch, self.mesh)
+                metrics = self.train_step(self.state, batch, args.seed + 1)
             self._profile(before_step=False)
             self.global_step += 1
             steps += 1

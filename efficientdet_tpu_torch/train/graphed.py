@@ -35,6 +35,11 @@ graph would read the old storage. Mode: a replay serves what was captured,
 which is eval mode (JAX's ``train=False``), whatever mode the modules are
 in when it runs.
 
+Spans (``utils/tracing.py``): a call opens ``graph.check``,
+``serve.stage`` (the copy into the static images), ``graph.replay`` and
+``graph.clone``; a capture opens ``graph.record`` over ``graph.warmup``,
+``graph.capture`` and ``graph.verify``.
+
 Launch counts: a capture launches nothing, so the kernel wrappers'
 ``.launches`` counters are set back to their values before it, and each
 replay adds to each counter what the capture added to it (the kernels the
@@ -51,6 +56,7 @@ import torch
 from ..kernels import fusion, mbconv_kernel
 from ..kernels.nms_kernel import nms_select
 from ..ops.nms import Detections
+from ..utils import tracing
 
 # Eager steps run at each new shape before its capture.
 WARMUP = 3
@@ -119,18 +125,24 @@ class GraphedEvalStep:
         with torch.inference_mode():
             entry = self.graphs.get(key)
             if entry is None:
-                entry = self.graphs[key] = self._record(images)
+                with tracing.span("graph.record"):
+                    entry = self.graphs[key] = self._record(images)
             else:
-                if self._storage() != entry.storage:
+                with tracing.span("graph.check"):
+                    replaced = self._storage() != entry.storage
+                if replaced:
                     raise ValueError(
                         f"graphed_eval_step: the model's parameters or "
                         f"buffers were replaced since the graph for images "
                         f"{key[0]} {key[1]} was captured, which would read "
                         f"the old ones; copy new weights in place "
                         f"(load_state_dict) or graph a new step")
-                entry.images.copy_(images)
-                _replay(entry)
-            return Detections(*(t.clone() for t in entry.detections))
+                with tracing.span("serve.stage"):
+                    entry.images.copy_(images)
+                with tracing.span("graph.replay"):
+                    _replay(entry)
+            with tracing.span("graph.clone"):
+                return Detections(*(t.clone() for t in entry.detections))
 
     def _storage(self) -> Tuple[int, ...]:
         return tuple(d[name].data_ptr() if d.get(name) is not None else 0
@@ -152,7 +164,7 @@ class GraphedEvalStep:
         static = torch.empty(images.shape, dtype=images.dtype, device=dev)
         static.copy_(images)
         stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
+        with tracing.span("graph.warmup"), torch.cuda.stream(stream):
             for _ in range(WARMUP):
                 want = self.eval_step(static)
         torch.cuda.current_stream(dev).wait_stream(stream)
@@ -160,8 +172,9 @@ class GraphedEvalStep:
         before = [fn.launches for fn in COUNTED]
         graph = torch.cuda.CUDAGraph()
         try:
-            out = _capture(graph, lambda: self.eval_step(static), self.pool,
-                           stream)
+            with tracing.span("graph.capture"):
+                out = _capture(graph, lambda: self.eval_step(static),
+                               self.pool, stream)
         finally:
             added = [fn.launches - n for fn, n in zip(COUNTED, before)]
             for fn, n in zip(COUNTED, before):
@@ -169,10 +182,12 @@ class GraphedEvalStep:
         entry = Graph(graph, static, Detections(*out),
                       tuple((fn, n) for fn, n in zip(COUNTED, added) if n),
                       self._storage())
-        _replay(entry)
-        torch.cuda.synchronize(dev)
-        differ = [f for f, a, b in zip(Detections._fields, entry.detections,
-                                       want) if not torch.equal(a, b)]
+        with tracing.span("graph.verify"):
+            _replay(entry)
+            torch.cuda.synchronize(dev)
+            differ = [f for f, a, b in zip(Detections._fields,
+                                           entry.detections, want)
+                      if not torch.equal(a, b)]
         if differ:
             raise RuntimeError(
                 f"graphed_eval_step: the first replay of the graph for "

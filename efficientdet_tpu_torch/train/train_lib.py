@@ -41,6 +41,7 @@ from ..models.detector import (EfficientDet, anchor_levels_for_model,
                                postprocess_from_scores)
 from ..models.fused_serving import check_fused_grid, fused_backbone_forward
 from ..ops.nms import Detections
+from ..utils import tracing
 
 # ImageNet statistics of efficientdet_tpu/data/transforms.py.
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -245,17 +246,21 @@ def make_train_step(model: EfficientDet, cfg: DetectorConfig
                    reduce_gradients: Optional[
                        Callable[[List[torch.Tensor]], None]] = None
                    ) -> Dict[str, torch.Tensor]:
-        images = maybe_normalize_images(batch["images"])
-        state.model.train()
-        cls_loss, reg_loss = training_loss(
-            state.model, images, batch["annotations"], anchor_levels, cfg,
-            step_generator(seed, state.step, images.device))
-        loss = cls_loss + reg_loss
-        grads = list(torch.autograd.grad(loss, state.params))
+        with tracing.span("train.forward_loss"):
+            images = maybe_normalize_images(batch["images"])
+            state.model.train()
+            cls_loss, reg_loss = training_loss(
+                state.model, images, batch["annotations"], anchor_levels,
+                cfg, step_generator(seed, state.step, images.device))
+            loss = cls_loss + reg_loss
+        with tracing.span("train.backward"):
+            grads = list(torch.autograd.grad(loss, state.params))
         if reduce_gradients is not None:
-            reduce_gradients(grads)
-        grad_norm = global_norm(grads)
-        state.apply_gradients(grads)
+            with tracing.span("train.reduce"):
+                reduce_gradients(grads)
+        with tracing.span("train.apply"):
+            grad_norm = global_norm(grads)
+            state.apply_gradients(grads)
         state.step += 1
         return {"loss": loss.detach(), "cls_loss": cls_loss.detach(),
                 "reg_loss": reg_loss.detach(), "grad_norm": grad_norm}
@@ -315,14 +320,18 @@ def make_eval_step(model: EfficientDet, cfg: DetectorConfig,
             model.eval()
         images = maybe_normalize_images(images)
         if fused_backbone:
+            with tracing.span("model.backbone"):
+                features = fused_backbone_forward(model.backbone, images,
+                                                  model.dtype)
             scores, classes, box_deltas = model.serving_from_features(
-                fused_backbone_forward(model.backbone, images, model.dtype))
+                features)
         else:
             scores, classes, box_deltas = model.serving_forward(images)
         if model.spatial is not None and model.spatial.index:
             return None
-        return postprocess_from_scores(scores, classes, box_deltas,
-                                       model.anchors, cfg)
+        with tracing.span("serve.postprocess"):
+            return postprocess_from_scores(scores, classes, box_deltas,
+                                           model.anchors, cfg)
 
     eval_step.model = model
     return eval_step

@@ -543,6 +543,49 @@ def test_graph_serves_eval_mode_after_a_train_step(cuda):
     assert not torch.equal(got.scores, before.scores)
 
 
+def test_graph_spans_on_the_card(cuda):
+    """The graph's spans on the card (``utils/tracing.py``): a capture,
+    then check, static copy, replay and clones; a replay runs no Python,
+    so no model span sits under it. Under the profiler the graph's launch
+    runs inside ``graph.replay``, and no span is drawn on the device's
+    timeline, where it would read as device work."""
+    from efficientdet_tpu_torch import graphed_eval_step
+    from efficientdet_tpu_torch.utils import tracing
+    model = EfficientDet(DetectorConfig(**SMALL), device=cuda,
+                         generator=torch.Generator().manual_seed(0))
+    model = model.eval().to(memory_format=torch.channels_last)
+    step = graphed_eval_step(make_eval_step(model, model.config))
+    images = torch.randint(0, 256, (2, 128, 128, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(1)
+                           ).to(cuda)
+    tracing.enable()
+    try:
+        step(images)
+        first = tracing.drain()["spans"]
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            step(images)
+            torch.cuda.synchronize()
+        second = tracing.drain()["spans"]
+    finally:
+        tracing.disable()
+        tracing.drain()
+    top = [s.name for s in first if s.parent is None]
+    assert top == ["graph.record", "graph.clone"]
+    assert [s.name for s in second] == ["graph.check", "serve.stage",
+                                        "graph.replay", "graph.clone"]
+    events = prof.events()
+    on_device = [ev.name for ev in events if ev.name in tracing.SPANS
+                 and ev.device_type == torch.autograd.DeviceType.CUDA]
+    assert not on_device
+    replay = [ev for ev in events if ev.name == "graph.replay"]
+    launch = [ev for ev in events if ev.name == "cudaGraphLaunch"]
+    assert len(replay) == 1 and len(launch) == 1
+    assert (replay[0].time_range.start <= launch[0].time_range.start
+            <= launch[0].time_range.end <= replay[0].time_range.end)
+
+
 def test_nccl_refuses_more_ranks_than_cards(cuda, monkeypatch, tmp_path):
     """NCCL needs a card per rank: a launcher's environment with more local
     ranks than cards raises before any process group is made, on every

@@ -290,6 +290,43 @@ def test_eval_driver_serves_one_graph_per_pass(fake_cuda, small_blob,
                                                        eager["detections"])
 
 
+def test_graph_spans(fake_cuda, small_blob):
+    """The eval entry point's request over the graph's spans
+    (``utils/tracing.py``): a capture at the first call, then a check, the
+    static copy, a replay and the clones."""
+    from efficientdet_tpu_torch.eval import driver
+    from efficientdet_tpu_torch.utils import tracing
+    evaluator = driver.Evaluator(driver.parse_args(
+        ["--dataset", "synthetic", "--weight", small_blob, "--device", "cpu",
+         "--synthetic_length", "2", "--batch_size", "2"]))
+    tracing.enable()
+    try:
+        calls = []
+        for seed in (1, 2):
+            evaluator.eval_fn(_uint8(seed).numpy())
+            calls.append(tracing.drain()["spans"])
+    finally:
+        tracing.disable()
+        tracing.drain()
+
+    def under(spans, parent):
+        return [s.name for s in spans if s.parent == parent.id]
+
+    for spans in calls:
+        assert [s.name for s in spans if s.parent is None] == [
+            "serve.eval_fn"]
+    first, second = calls
+    assert under(first, first[0]) == ["serve.stage", "graph.record",
+                                      "graph.clone"]
+    record = next(s for s in first if s.name == "graph.record")
+    assert under(first, record) == ["graph.warmup", "graph.capture",
+                                    "graph.verify"]
+    assert under(second, second[0]) == ["serve.stage", "graph.check",
+                                        "serve.stage", "graph.replay",
+                                        "graph.clone"]
+    assert "graph.record" not in {s.name for s in second}
+
+
 def test_demo_serves_through_a_graph(fake_cuda, small_blob):
     from efficientdet_tpu_torch import demo
     detect = demo.Detect(demo.parse_args(
