@@ -33,8 +33,9 @@ against one process, with each rank's peak memory), and times
 the steps and the kernels: each kernel beside its plain version and its
 bound (the larger of its bytes over the H100's 3.35 TB/s and its operations
 over the peak rate of their type), the fused MBConv kernel also per block
-shape beside the module path's ops, the BiFPN fusion kernels with their
-inputs rotated through more than the 50 MB L2.
+shape beside the module path's ops, the MBConv tail kernel (kernel F) over
+D0's 16 tails beside the eager sequence it replaced, the BiFPN fusion
+kernels with their inputs rotated through more than the 50 MB L2.
 
     python3 chip_smoke.py [--profile [--out DIR]]
 
@@ -446,6 +447,94 @@ def b6_widest_shape():
     return max(mbconv_shapes("efficientnet-b6", 1408), key=lambda s: s[1])
 
 
+def tail_shapes(model_name: str, image_size: int):
+    """(pixels, Ce, Cse, Cout, skip) of each MBConv block's tail of the
+    backbone at ``image_size``, in order (the fused path's one
+    ``mbconv_tail`` per block): the output map's pixels an image, the
+    expanded and squeezed widths, the output width, and whether the block
+    adds its input."""
+    from efficientdet_tpu_torch.models.efficientnet import EfficientNetFeatures
+    h = -(-image_size // 2)  # after the stride-2 stem
+    shapes = []
+    for block in EfficientNetFeatures(model_name, device="meta")._blocks:
+        ba = block.block_args
+        h = -(-h // ba.stride)
+        shapes.append((h * h, ba.input_filters * ba.expand_ratio,
+                       block._se_reduce.weight.shape[0], ba.output_filters,
+                       block.id_skip))
+    return shapes
+
+
+def d0_tail_shapes():
+    """D0@512's 16 tails, in order."""
+    shapes = tail_shapes("efficientnet-b0", IMAGE_SIZE)
+    check(len(shapes) == 16, f"D0 has {len(shapes)} blocks, not 16")
+    return shapes
+
+
+def b6_widest_tail():
+    """efficientnet-b6's widest tail at D6's input size (1408)."""
+    return max(tail_shapes("efficientnet-b6", 1408), key=lambda s: s[1])
+
+
+def tail_bound(shape, batch: int):
+    """The tail's bound at (pixels, Ce, Cse, Cout, skip): z read, the
+    output written and the skip read once in bf16; the SE mean, the SE
+    convs' and the project conv's weights and biases and BN2's vectors once
+    in f32; the project GEMM, the gate multiply and the SE convs at the
+    bf16 tensor-core peak."""
+    pixels, ce, cse, cout, skip = shape
+    n = batch * pixels
+    nbytes = (2 * (n * ce + n * cout * (2 if skip else 1))
+              + 4 * (batch * ce + 2 * ce * cse + cse + ce + cout * ce
+                     + 2 * cout))
+    flops = 2 * n * ce * cout + n * ce + 4 * batch * ce * cse
+    return bound(nbytes, flops, BF16_FLOPS)
+
+
+def tail_inputs(torch, gen, batch, shape, skip=None):
+    """z (B, H, H, Ce) bf16 (a swish's range), its f32 mean and the tail's
+    f32 parameters, scaled so that each sum is O(1); with ``skip`` (default:
+    the block's own) a bf16 skip. ``gen`` is a CUDA generator."""
+    pixels, ce, cse, cout, has_skip = shape
+    h = int(round(pixels ** 0.5))
+    dev = gen.device
+
+    def randn(*size):
+        return torch.randn(*size, generator=gen, device=dev)
+
+    z = torch.nn.functional.silu(randn(batch, h, h, ce)).to(torch.bfloat16)
+    skip = has_skip if skip is None else skip
+    return (z, z.float().mean(dim=(1, 2)),
+            randn(cse, ce, 1, 1) / ce ** 0.5, randn(cse) * 0.5,
+            randn(ce, cse, 1, 1) / cse ** 0.5, randn(ce) * 0.5 + 1.0,
+            randn(cout, ce, 1, 1) / ce ** 0.5,
+            torch.rand(cout, generator=gen, device=dev) + 0.5,
+            randn(cout) * 0.1,
+            randn(batch, h, h, cout).to(torch.bfloat16) if skip else None)
+
+
+def tail_agreement(torch, got, want):
+    """(largest share of its limit an element of ``got`` uses, elements
+    beyond it, all within): the tail kernel against its plain version, both
+    bf16. The limit is 2^-6 of the plain output's RMS plus two bf16 ulps of
+    the element. The kernel rounds where the module path rounds and its
+    project GEMM sums as cuDNN's does, so they agree bit for bit but where
+    one of its SE sums, taken in another order than cuDNN's, rounds a gate
+    to the other bf16 neighbour (a few in 10^4 gates at b0's widest tail):
+    then every output of that image may flip by an ulp, which the BN and the
+    skip's add carry on, by up to two ulps at the largest elements."""
+    g, w = got.float(), want.float()
+    rms = w.pow(2).mean().sqrt().item()
+    limit = TAIL_TOL * rms + 2 * bf16_ulp(w)
+    ratio = (g - w).abs() / limit
+    off = int((ratio > 1).sum())
+    return ratio.max().item(), off, off == 0
+
+
+TAIL_TOL = 2.0 ** -6
+
+
 def mbconv_inputs(torch, gen, batch, shape, dtype):
     """x (B, H, H, Cin) and the weights of one block, scaled so that the
     expand and depthwise sums are O(1); ``gen`` is a CUDA generator."""
@@ -645,6 +734,38 @@ def check_mbconv_case(torch, kernel, plain, prepare, x, weights, stride,
     return 0.0
 
 
+def phase_tail(torch, dev):
+    """The MBConv tail kernel (kernel F) against its plain version, by
+    ``tail_agreement``, at D0@512's 16 tails at each of ``MAIN_BATCHES``
+    (each with its block's own skip) and at efficientnet-b6's widest tail at
+    B = 4 with and without a skip; every case launched twice, bit for bit
+    the same. Returns the largest share of the limit."""
+    from efficientdet_tpu_torch.kernels import mbconv_tail as mt
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    cases = [(b, shape, None) for b in MAIN_BATCHES
+             for shape in d0_tail_shapes()]
+    cases += [(4, b6_widest_tail(), skip) for skip in (False, True)]
+    worst = 0.0
+    for batch, shape, skip in cases:
+        args = tail_inputs(torch, gen, batch, shape, skip)
+        name = f"mbconv_tail {shape} B={batch} skip={args[-1] is not None}"
+        before = mt.mbconv_tail.launches
+        got, again = mt.mbconv_tail(*args), mt.mbconv_tail(*args)
+        torch.cuda.synchronize()
+        want = mt.mbconv_tail_plain(*args)
+        check(mt.mbconv_tail.launches == before + 2, f"{name}: launches")
+        check(got.shape == want.shape and got.dtype == torch.bfloat16,
+              f"{name}: output shape or dtype")
+        check(torch.equal(got, again), f"{name}: two launches differ")
+        share, off, ok = tail_agreement(torch, got, want)
+        check(ok, f"{name}: {off} of {got.numel()} elements beyond the "
+              f"limit ({share:.3g} of it)")
+        worst = max(worst, share)
+        log(f"{name}: {share:.3f} of the limit, {int((got != want).sum())} "
+            f"of {got.numel()} elements off the plain version")
+    return worst
+
+
 def reset_launches():
     """Set every kernel wrapper's launch count to 0; returns the wrappers."""
     from efficientdet_tpu_torch.train.graphed import COUNTED
@@ -813,7 +934,8 @@ def phase_serving(torch, dev, cfg, state):
           and launches["fuse_bottomup"] == 6 * per_path["fusion"],
           f"fusion launches {launches} for {per_path['fusion']} fusion steps")
     check(launches["fused_expand_dw_flat"] == 15 * per_path["fusedmb"]
-          and launches["fused_expand_dw"] == 0,
+          and launches["fused_expand_dw"] == 0
+          and launches["mbconv_tail"] == 16 * per_path["fusedmb"],
           f"mbconv launches {launches} for {per_path['fusedmb']} "
           "fused-backbone steps")
     check(kept_total > 0, "no detections at all")
@@ -1680,9 +1802,9 @@ def gloo_ranks_on_one_card(torch, dev, cfg, state, tmp, mesh):
 def eval_in_group_of_one(torch, dev, cfg, state, mesh):
     """(iii) ``shard_eval_step`` in the NCCL group of one, bf16 at B = 8,
     module and fused backbone, the rank's step graphed: bit-equal to
-    ``make_eval_step``, one NMS launch per call and 15 MBConv launches per
-    fused call (and per eager step before the capture). Returns the
-    launches of the sharded calls."""
+    ``make_eval_step``, one NMS launch per call and 15 MBConv launches and
+    16 tails per fused call (and per eager step before the capture).
+    Returns the launches of the sharded calls."""
     from efficientdet_tpu_torch import make_eval_step
     from efficientdet_tpu_torch.parallel import shard_eval_step
     from efficientdet_tpu_torch.train import graphed
@@ -1708,7 +1830,8 @@ def eval_in_group_of_one(torch, dev, cfg, state, mesh):
         # runs graphed.WARMUP eager steps first.
         calls = PARALLEL_EVAL_CALLS + graphed.WARMUP
         check(launches["nms_select"] == calls
-              and mbconv == 15 * calls * fused,
+              and mbconv == 15 * calls * fused
+              and launches["mbconv_tail"] == 16 * calls * fused,
               f"shard_eval_step {name} launches {launches}")
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
@@ -2059,7 +2182,8 @@ def phase_spatial(torch, dev, cfg, state, d7_job):
               and per_step["fuse_bottomup"] == [6.0 * fusion]
               * SPATIAL_SHARDS
               and not any(per_step["fused_expand_dw_flat"])
-              and not any(per_step["fused_expand_dw"]),
+              and not any(per_step["fused_expand_dw"])
+              and not any(per_step["mbconv_tail"]),
               f"spatial {key} launches per step and rank {per_step}")
         for n in per_rank:
             for k, v in n.items():
@@ -2242,7 +2366,8 @@ def phase_eval(torch, dev, cfg, state, overfit_state):
             n = pass_steps(evaluator, batches)
             want = {"nms_select": n, "fuse_topdown": 0, "fuse_bottomup": 0,
                     "fused_expand_dw_flat": 15 * n if fused else 0,
-                    "fused_expand_dw": 0}
+                    "fused_expand_dw": 0,
+                    "mbconv_tail": 16 * n if fused else 0}
             check(launches == want, f"eval B={b} fused={fused}: launches "
                   f"{launches}, want {want}")
             check(len(dets) == batches and summary["detections"] > 0,
@@ -2361,10 +2486,11 @@ def phase_eval(torch, dev, cfg, state, overfit_state):
                           "images")
                 else:
                     n = pass_steps(evaluator, 1)
+                # float32: the tail runs its plain version, no launch.
                 want = {"nms_select": n, "fuse_topdown": 0,
                         "fuse_bottomup": 0,
                         "fused_expand_dw_flat": 15 * n if fused else 0,
-                        "fused_expand_dw": 0}
+                        "fused_expand_dw": 0, "mbconv_tail": 0}
                 check(len(dets) == 1 and launches == want,
                       f"overfit model, {device}{' fused' if fused else ''}: "
                       f"{len(dets)} batches, launches {launches}, want "
@@ -2833,7 +2959,8 @@ def phase_native(torch, dev, profile_dir=None):
             n = pass_steps(evaluator, batches)
             want = {"nms_select": n, "fuse_topdown": 0, "fuse_bottomup": 0,
                     "fused_expand_dw_flat": 15 * n if fused else 0,
-                    "fused_expand_dw": 0}
+                    "fused_expand_dw": 0,
+                    "mbconv_tail": 16 * n if fused else 0}
             check(launches == want, f"eval VOC B={b} fused={fused}: "
                   f"launches {launches}, want {want}")
             check(len(dets) == batches, f"eval VOC B={b}: {len(dets)}")
@@ -2957,7 +3084,8 @@ def native_d7_eval(torch, dev, blob: str):
             want = {"nms_select": pass_steps(evaluators[mode], batches,
                                              graphs),
                     "fuse_topdown": 0, "fuse_bottomup": 0,
-                    "fused_expand_dw_flat": 0, "fused_expand_dw": 0}
+                    "fused_expand_dw_flat": 0, "fused_expand_dw": 0,
+                    "mbconv_tail": 0}
             check(launches == want, f"eval D7 --native_loader {mode}: "
                   f"launches {launches}, want {want}")
             check(len(dets) == batches, f"eval D7: {len(dets)} batches")
@@ -3008,7 +3136,10 @@ def path_launches(model, path: str):
     """{wrapper: launches} of one eval step of ``model`` on ``path``: one
     NMS; on ``fusion`` one kernel per BiFPN node whose levels are exactly
     2x apart, in each of the D_bifpn modules; on ``fusedmb`` one MBConv
-    launch per expanded block."""
+    launch per expanded block and, in bfloat16, one tail per block (a
+    float32 tail runs its plain version)."""
+    import torch
+
     from efficientdet_tpu_torch.models import pyramid_shapes_for_model
     grid = pyramid_shapes_for_model(model)
     twice = [(2 * h, 2 * w) for h, w in grid]
@@ -3022,7 +3153,10 @@ def path_launches(model, path: str):
             "fuse_bottomup": fusion_on * modules * sum(
                 grid[i] == twice[i + 1] for i in range(len(grid) - 2)),
             "fused_expand_dw_flat": (path == "fusedmb") * blocks,
-            "fused_expand_dw": 0}
+            "fused_expand_dw": 0,
+            "mbconv_tail": (path == "fusedmb"
+                            and model.dtype == torch.bfloat16)
+            * len(model.backbone._blocks)}
 
 
 def counted(counters, fn, expect, what: str):
@@ -3745,6 +3879,28 @@ def phase_kernel_times(torch, dev, nms_sets):
     times["mbconv_fused"] = dict(
         total, bound_by="bytes" if 2 * bytes_ms >= total["bound_ms"]
         else "operations")
+
+    # The tail kernel at D0's 16 tails, B = 32, beside the eager sequence it
+    # replaced (its plain version: cuDNN's convs and PyTorch's elementwise
+    # passes, the ``library_ms`` of its entry), L2-warm.
+    from efficientdet_tpu_torch.kernels import mbconv_tail
+    tail = dict.fromkeys(("ms", "plain_ms", "bound_ms"), 0.0)
+    for shape in d0_tail_shapes():
+        args = tail_inputs(torch, cuda_gen, 32, shape)
+        k_ms, k_wall = device_ms(lambda: mbconv_tail.mbconv_tail(*args))
+        p_ms, p_wall = device_ms(
+            lambda: mbconv_tail.mbconv_tail_plain(*args), 5)
+        b_ms, b_by = tail_bound(shape, 32)
+        for key, value in zip(tail, (k_ms, p_ms, b_ms)):
+            tail[key] += value
+        log(f"mbconv_tail {shape} B=32 bf16: kernel {k_ms:.4f} ms device "
+            f"({k_wall:.4f} wall), eager sequence {p_ms:.4f} ({p_wall:.4f} "
+            f"wall), bound {b_ms:.4f} ({b_by}), share {b_ms / k_ms:.3f}")
+    log(f"mbconv_tail over D0's 16 tails at B=32 bf16: kernel "
+        f"{tail['ms']:.4f} ms device, eager sequence {tail['plain_ms']:.4f}, "
+        f"bound {tail['bound_ms']:.4f} (share "
+        f"{tail['bound_ms'] / tail['ms']:.3f})")
+    times["mbconv_tail"] = dict(tail, bound_by="bytes")
     return times
 
 
@@ -3872,6 +4028,7 @@ def main() -> int:
     t0 = time.perf_counter()
     mbconv_err = phase_mbconv(torch, dev)
     log(f"mbconv phase {time.perf_counter() - t0:.1f} s")
+    tail_err = phase_tail(torch, dev)
     from efficientdet_tpu_torch import DetectorConfig
     cfg = DetectorConfig(num_classes=80, network="efficientdet-d0").resolve()
     state = seeded_state(torch, cfg, dev)
@@ -4000,6 +4157,23 @@ def main() -> int:
         if name == "nms_select":
             entry["by_input"] = t["by_input"]
         kernels.append(entry)
+    # Kernel F replaces no TPU kernel; its yardstick is the eager sequence
+    # it replaced (the plain version), so library_ms is that sequence.
+    t = times["mbconv_tail"]
+    kernels.append({
+        "name": "mbconv_tail", "route": "cuda",
+        "source": "efficientdet_tpu_torch/csrc/mbconv_tail.cu",
+        "replaces": None, "launches": launches["mbconv_tail"],
+        "launches_per_step": 16,
+        "eval_launches": eval_launches["mbconv_tail"],
+        "graphs_phase_launches": graphs["launches"]["mbconv_tail"],
+        "native_phase_launches": native_launches.get("mbconv_tail", 0),
+        "parallel_launches": parallel["launches"]["mbconv_tail"],
+        "spatial_launches": spatial["launches"].get("mbconv_tail", 0),
+        "variants_launches": variants["launches"]["mbconv_tail"],
+        "max_share_of_limit": tail_err, "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["plain_ms"]})
     log(f"training D0@512 bf16 frozen BN B={TRAIN_BATCH}: {train['ms']:.3f} "
         f"ms/step, {train['img_s']:.1f} img/s, peak memory "
         f"{train['peak_gib']:.2f} GiB; focal backward f32 within "

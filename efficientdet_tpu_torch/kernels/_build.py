@@ -112,4 +112,8 @@ def load_library() -> ctypes.CDLL:
                                           + [ctypes.c_int] * 20
                                           + [ctypes.c_void_p])
     lib.edt_mbconv_fused_bf16.restype = ctypes.c_int
+    lib.edt_mbconv_tail_bf16.argtypes = ([ctypes.c_void_p] * 13
+                                         + [ctypes.c_int] * 14
+                                         + [ctypes.c_void_p])
+    lib.edt_mbconv_tail_bf16.restype = ctypes.c_int
     return lib

@@ -5,8 +5,11 @@ of an ``EfficientNetFeatures`` module's weights that adds no parameters. It
 folds every frozen BatchNorm into an affine and runs each MBConv expand ->
 BN -> swish -> depthwise -> BN -> swish segment as one launch of
 ``kernels/mbconv_kernel.py::fused_expand_dw_flat``, so the expanded tensor
-never reaches device memory. The stem, the SE convs, the project conv and
-the one block without an expansion stay on cuDNN.
+never reaches device memory, and each block's tail (squeeze-excite gate,
+project conv, BN and skip) as one pair of launches of
+``kernels/mbconv_tail.py::mbconv_tail``, which reads the expanded tensor
+once. The stem and the depthwise of the one block without an expansion
+stay on cuDNN.
 
 The order of casts follows the JAX function op for op, since it sets the
 bf16 result: each BN runs in float32 on the conv's output and is cast back
@@ -39,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.mbconv_kernel import fold_bn_affines, fused_expand_dw_flat
+from ..kernels.mbconv_tail import mbconv_tail
 from .efficientnet import EfficientNetFeatures
 from .layers import BatchNorm
 
@@ -126,24 +130,21 @@ def fused_backbone_forward(backbone: EfficientNetFeatures,
         for _ in range(repeats):
             block = next(blocks)
             ba = block.block_args
-            inputs = x
+            inputs = x.permute(0, 2, 3, 1)
             if ba.expand_ratio != 1:
                 we = block._expand_conv.weight.flatten(1).t()
                 wd = block._depthwise_conv.weight[:, 0].permute(1, 2, 0)
-                z, se_mean = fused_expand_dw_flat(
-                    x.permute(0, 2, 3, 1), we, *affine[block._bn0], wd,
-                    *affine[block._bn1], stride=ba.stride)
-                x = z.permute(0, 3, 1, 2)
-                s = se_mean[:, :, None, None].to(dtype)
+                z, s = fused_expand_dw_flat(
+                    inputs, we, *affine[block._bn0], wd, *affine[block._bn1],
+                    stride=ba.stride)
             else:
                 x = F.silu(_bn(block._depthwise_conv(x), affine[block._bn1],
                                torch.float32)).to(dtype)
-                s = x.mean(dim=(2, 3), keepdim=True)
-            if block.has_se:
-                s = block._se_expand(F.silu(block._se_reduce(s)))
-                x = torch.sigmoid(s).to(x.dtype) * x
-            x = _bn(block._project_conv(x), affine[block._bn2], dtype)
-            if block.id_skip:
-                x = x + inputs
+                z, s = x.permute(0, 2, 3, 1), x.mean(dim=(2, 3))
+            x = mbconv_tail(
+                z, s, block._se_reduce.weight, block._se_reduce.bias,
+                block._se_expand.weight, block._se_expand.bias,
+                block._project_conv.weight, *affine[block._bn2],
+                inputs if block.id_skip else None).permute(0, 3, 1, 2)
         features.append(x)
     return features

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from efficientdet_tpu_torch import DetectorConfig, EfficientDet, make_eval_step
-from efficientdet_tpu_torch.kernels import fusion, mbconv_kernel
+from efficientdet_tpu_torch.kernels import fusion, mbconv_kernel, mbconv_tail
 from efficientdet_tpu_torch.kernels.nms_kernel import nms_select
 
 MBCONV = {"v1": (mbconv_kernel.fused_expand_dw,
@@ -196,7 +196,7 @@ def test_fused_backbone_refuses_before_any_launch(cuda):
     model = EfficientDet(cfg, device=cuda).eval()
     counters = (nms_select, fusion.fuse_topdown, fusion.fuse_bottomup,
                 mbconv_kernel.fused_expand_dw_flat,
-                mbconv_kernel.fused_expand_dw)
+                mbconv_kernel.fused_expand_dw, mbconv_tail.mbconv_tail)
     before = [fn.launches for fn in counters]
     with pytest.raises(ValueError, match="differs from the model's"):
         make_eval_step(model, cfg, fused_backbone=True)
@@ -300,21 +300,100 @@ def test_mbconv_bf16_kernel_equals_sequential_plain(cuda, shape):
 
 def test_small_fused_backbone_step_launches_kernel(cuda):
     """The small detector's serving step with the fused backbone: 15
-    launches of the flat kernel (blocks 1..15), none of v1, one NMS."""
+    launches of the flat kernel (blocks 1..15), none of v1, 16 tails (one a
+    block), one NMS."""
     cfg = DetectorConfig(**SMALL)
     model = EfficientDet(cfg, dtype=torch.bfloat16, device=cuda,
                          generator=torch.Generator().manual_seed(0))
     model = model.eval().to(memory_format=torch.channels_last)
     counts = (mbconv_kernel.fused_expand_dw_flat.launches,
-              mbconv_kernel.fused_expand_dw.launches, nms_select.launches)
+              mbconv_kernel.fused_expand_dw.launches,
+              mbconv_tail.mbconv_tail.launches, nms_select.launches)
     det = make_eval_step(model, cfg, fused_backbone=True)(torch.randint(
         0, 256, (2, 128, 128, 3), dtype=torch.uint8, device=cuda))
     torch.cuda.synchronize()
     assert (mbconv_kernel.fused_expand_dw_flat.launches - counts[0],
             mbconv_kernel.fused_expand_dw.launches - counts[1],
-            nms_select.launches - counts[2]) == (15, 0, 1)
+            mbconv_tail.mbconv_tail.launches - counts[2],
+            nms_select.launches - counts[3]) == (15, 0, 16, 1)
     assert det.scores.shape == (2, 100)
     assert torch.isfinite(det.boxes).all()
+
+
+def _tail_args(device, batch=2, shape=(64, 96, 4, 24, True), seed=0):
+    """A tail's inputs (``chip_smoke.tail_inputs``) on ``device``: shape is
+    (pixels, Ce, Cse, Cout, skip)."""
+    from chip_smoke import tail_inputs
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return list(tail_inputs(torch, gen, batch, shape))
+
+
+def _tail_shape(block):
+    from chip_smoke import b6_widest_tail, d0_tail_shapes
+    return b6_widest_tail() if block == "b6" else d0_tail_shapes()[block]
+
+
+@pytest.mark.parametrize("skip", [False, True])
+@pytest.mark.parametrize("batch,block", [(b, i) for b in (1, 32)
+                                         for i in range(16)]
+                         + [(1, "b6"), (4, "b6")])
+def test_mbconv_tail_matches_plain(cuda, batch, block, skip):
+    """Kernel F at each of D0@512's 16 tails at B = 1 and 32, and at
+    efficientnet-b6's widest at B = 1 and 4, with and without a skip: one
+    launch, and every element within ``chip_smoke.tail_agreement``'s limit
+    of the plain version (2^-6 of its RMS, and two ulps where a gate rounds
+    to the other bf16 neighbour)."""
+    from chip_smoke import tail_agreement, tail_inputs
+    gen = torch.Generator(device=cuda).manual_seed(
+        batch * 100 + (99 if block == "b6" else block) + 50 * skip)
+    args = tail_inputs(torch, gen, batch, _tail_shape(block), skip)
+    before = mbconv_tail.mbconv_tail.launches
+    got = mbconv_tail.mbconv_tail(*args)
+    torch.cuda.synchronize()
+    assert mbconv_tail.mbconv_tail.launches == before + 1
+    want = mbconv_tail.mbconv_tail_plain(*args)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    share, off, ok = tail_agreement(torch, got, want)
+    assert ok, f"{off} of {got.numel()} elements beyond the limit ({share})"
+
+
+@pytest.mark.parametrize("batch,block", [(32, 0), (32, 12), (1, 15),
+                                         (4, "b6")])
+def test_mbconv_tail_repeats_its_bits(cuda, batch, block):
+    """Two launches on the same inputs give the same bits (a graph's first
+    replay must equal the eager step): no sum's order depends on timing."""
+    args = _tail_args(cuda, batch, _tail_shape(block), seed=3)
+    first = mbconv_tail.mbconv_tail(*args)
+    second = mbconv_tail.mbconv_tail(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_mbconv_tail_rejects_bad_input(cuda):
+    """Wrong device, dtype, layout and shapes: a ``ValueError`` or
+    ``TypeError`` before any launch."""
+    args = _tail_args(cuda)
+    before = mbconv_tail.mbconv_tail.launches
+
+    def call(**swap):
+        names = ("z", "s", "w_reduce", "b_reduce", "w_expand", "b_expand",
+                 "w_project", "scale", "bias", "skip")
+        given = dict(zip(names, args), **swap)
+        return mbconv_tail.mbconv_tail(*(given[n] for n in names))
+
+    with pytest.raises(ValueError, match="different devices"):
+        call(w_project=args[6].cpu())
+    with pytest.raises(TypeError):
+        call(skip=args[9].float())
+    with pytest.raises(ValueError, match="contiguous"):
+        call(z=args[0].transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="do not agree"):
+        call(w_project=args[6][:16])
+    for ce, cout in ((8, 24), (100, 24), (96, 20), (96, 584)):
+        bad = _tail_args(cuda, shape=(64, ce, 4, cout, False))
+        with pytest.raises(ValueError, match="unsupported shape"):
+            mbconv_tail.mbconv_tail(*bad)
+    assert mbconv_tail.mbconv_tail.launches == before
 
 
 def _small_batch(device, b=2):
@@ -347,13 +426,14 @@ def _wrapper_calls(device):
                             _mbconv_args(device)),
         "fused_expand_dw_flat": (mbconv_kernel.fused_expand_dw_flat,
                                  _mbconv_args(device)),
+        "mbconv_tail": (mbconv_tail.mbconv_tail, _tail_args(device)),
         "nms_select": (nms_select, (r(1, 10), boxes.to(device), 0.5, 5)),
     }
 
 
 @pytest.mark.parametrize("name", ["fuse_topdown", "fuse_bottomup",
                                   "fused_expand_dw", "fused_expand_dw_flat",
-                                  "nms_select"])
+                                  "mbconv_tail", "nms_select"])
 def test_kernel_wrappers_refuse_gradients(cuda, name):
     """Asked for a gradient, a wrapper raises before it launches (the
     kernel has no backward); without grad mode it launches once."""
@@ -401,7 +481,7 @@ def test_small_train_step(cuda):
                                         apply(gs))
     counters = (nms_select, fusion.fuse_topdown, fusion.fuse_bottomup,
                 mbconv_kernel.fused_expand_dw,
-                mbconv_kernel.fused_expand_dw_flat)
+                mbconv_kernel.fused_expand_dw_flat, mbconv_tail.mbconv_tail)
     launches = [fn.launches for fn in counters]
     metrics = make_train_step(model, cfg)(state, _small_batch(cuda), 0)
     torch.cuda.synchronize()
@@ -433,8 +513,8 @@ def test_eval_driver_launches_kernels(cuda, tmp_path, fused):
     """``python -m efficientdet_tpu_torch.eval`` with its default device,
     bf16, 5 synthetic images in batches of 2 (the last padded): the model
     on the card, one graph, one NMS launch per batch (and per warm-up step
-    of the capture) and, with ``--fused_backbone``, 15 MBConv launches per
-    batch."""
+    of the capture) and, with ``--fused_backbone``, 15 MBConv launches and
+    16 tails (one a block) per batch; without it, none of either."""
     from efficientdet_tpu_torch.eval import driver
     args = driver.parse_args(
         ["--dataset", "synthetic", "--weight", _small_blob(cuda, tmp_path),
@@ -443,7 +523,8 @@ def test_eval_driver_launches_kernels(cuda, tmp_path, fused):
     evaluator = driver.Evaluator(args)
     assert next(evaluator.model.parameters()).is_cuda
     counts = (nms_select.launches,
-              mbconv_kernel.fused_expand_dw_flat.launches)
+              mbconv_kernel.fused_expand_dw_flat.launches,
+              mbconv_tail.mbconv_tail.launches)
     summary = evaluator.run()
     torch.cuda.synchronize()
     # The step is graphed: one capture for the pass (the last batch
@@ -452,8 +533,9 @@ def test_eval_driver_launches_kernels(cuda, tmp_path, fused):
     steps = 3 + graphed.WARMUP
     assert len(evaluator.eval_step.graphs) == 1
     assert (nms_select.launches - counts[0],
-            mbconv_kernel.fused_expand_dw_flat.launches - counts[1]) == (
-                steps, 15 * steps if fused else 0)
+            mbconv_kernel.fused_expand_dw_flat.launches - counts[1],
+            mbconv_tail.mbconv_tail.launches - counts[2]) == (
+                steps, 15 * steps if fused else 0, 16 * steps if fused else 0)
     assert summary["images"] == 5 and 0 <= summary["mAP"] <= 1
 
 

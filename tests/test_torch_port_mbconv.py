@@ -23,6 +23,9 @@ from efficientdet_tpu.models import fused_serving as jax_fused
 from efficientdet_tpu.train import make_eval_step as jax_make_eval_step
 from efficientdet_tpu_torch import fused_backbone_forward, make_eval_step
 from efficientdet_tpu_torch.kernels import mbconv_kernel as mk
+from efficientdet_tpu_torch.kernels import mbconv_tail as mt
+from efficientdet_tpu_torch.models.efficientnet import EfficientNetFeatures
+from efficientdet_tpu_torch.models.fused_serving import _bn
 from efficientdet_tpu_torch.models.layers import BatchNorm
 from test_torch_port_slice import (CFG, SIZE, _nhwc, _port,  # noqa: F401
                                    jax_model, one_thread)
@@ -417,3 +420,253 @@ def test_bf16_criterion_takes_any_order_and_refuses_the_unrounded(
             assert chip_smoke.bf16_agreement(z, z64, allowance)[2]
         unrounded = chip_smoke.unrounded_plain(mk, prepare, x, *w, stride)
         assert not chip_smoke.bf16_agreement(unrounded, z64, allowance)[2]
+
+
+# ------------------------------------------------------------ the tail (kernel F)
+def _d0_tails():
+    """(pixels, Ce, Cse, Cout, skip) of D0@512's 16 tails, in block order."""
+    import chip_smoke
+    return chip_smoke.d0_tail_shapes()
+
+
+D0_TAILS = _d0_tails()
+# tail_plan's (kc, mi, nj, m_tiles, n_tiles, packed, n_img) for D0@512's 16
+# tails, in block order, at B = 1 and 32.
+TAIL_PLANS = {
+    1: [(32, 2, 2, 512, 1, False, 1), (32, 2, 3, 128, 1, False, 1),
+        (32, 2, 3, 128, 1, False, 1), (32, 2, 2, 32, 3, False, 1),
+        (32, 2, 2, 32, 3, False, 1), (32, 2, 1, 8, 10, False, 1),
+        (64, 2, 1, 8, 10, False, 1), (64, 2, 1, 8, 10, False, 1),
+        (64, 2, 1, 2, 14, False, 1), (64, 2, 1, 2, 14, False, 1),
+        (64, 2, 1, 2, 14, False, 1), (64, 1, 1, 1, 24, True, 1),
+        (64, 1, 1, 1, 24, True, 1), (64, 1, 1, 1, 24, True, 1),
+        (64, 1, 1, 1, 24, True, 1), (64, 1, 1, 1, 40, True, 1)],
+    32: [(32, 2, 2, 512, 1, False, 1), (32, 2, 3, 128, 1, False, 1),
+         (32, 2, 3, 128, 1, False, 1), (32, 2, 5, 32, 1, False, 1),
+         (32, 2, 5, 32, 1, False, 1), (32, 2, 5, 8, 2, False, 1),
+         (64, 2, 5, 8, 2, False, 1), (64, 2, 5, 8, 2, False, 1),
+         (64, 2, 7, 2, 2, False, 1), (64, 2, 7, 2, 2, False, 1),
+         (64, 2, 7, 2, 2, False, 1), (64, 2, 4, 16, 6, True, 3),
+         (64, 2, 4, 16, 6, True, 3), (64, 2, 4, 16, 6, True, 3),
+         (64, 2, 4, 16, 6, True, 3), (64, 2, 2, 4, 20, True, 9)],
+}
+
+
+def _check_tail_plan(plan, batch, pixels, ce, cout):
+    """A plan fits a block's shared memory and covers every output row and
+    channel once and all of K; packed, each m16 tile lies in one image and
+    a tile's images fit its ``n_img`` gates."""
+    assert plan.smem_bytes <= 232448
+    rows = batch * pixels if plan.packed else pixels
+    assert (plan.m_tiles - 1) * plan.block_m < rows <= (plan.m_tiles
+                                                        * plan.block_m)
+    assert (plan.n_tiles - 1) * plan.block_n < cout <= (plan.n_tiles
+                                                        * plan.block_n)
+    assert (plan.chunks - 1) * plan.kc < ce <= plan.chunks * plan.kc
+    assert plan.kc in (32, 64) and plan.mi in (1, 2) and 1 <= plan.nj <= 8
+    assert plan.grid(batch) == (plan.m_tiles * plan.n_tiles,
+                                1 if plan.packed else batch)
+    if plan.packed:
+        assert pixels % 16 == 0 and pixels < 128
+        for r0 in range(0, rows, plan.block_m):
+            images = {r // pixels for r in range(r0, min(rows, r0 + plan.block_m))}
+            assert len(images) <= plan.n_img
+            for r in range(r0, r0 + plan.block_m, 16):
+                assert r // pixels == (r + 15) // pixels
+    else:
+        assert plan.n_img == 1
+
+
+@pytest.mark.parametrize("batch", [1, 32])
+@pytest.mark.parametrize("block", range(16))
+def test_tail_plan_at_d0(block, batch):
+    """The tail GEMM's plan at D0@512's 16 tails, pinned: per image with
+    128-row tiles down to 16 x 16 maps, packed over the batch below (8 x 8
+    and 4 x 4); K in 32-channel chunks up to Ce 240, 64 above; at B = 1 N
+    split down to one n8 tile where an image has few tiles, never K."""
+    pixels, ce, _, cout, _ = D0_TAILS[block]
+    plan = mt.tail_plan(batch, pixels, ce, cout)
+    assert (plan.kc, plan.mi, plan.nj, plan.m_tiles, plan.n_tiles,
+            plan.packed, plan.n_img) == TAIL_PLANS[batch][block]
+    _check_tail_plan(plan, batch, pixels, ce, cout)
+
+
+def _variant_tails():
+    """The distinct tails of efficientnet-b1..b6 at D1..D6's published
+    sizes (pixels, Ce, Cout)."""
+    import chip_smoke
+    from efficientdet_tpu_torch import DetectorConfig
+    tails = set()
+    for network in chip_smoke.D1_D6:
+        cfg = DetectorConfig(num_classes=80, network=network).resolve()
+        tails |= {(p, ce, cout) for p, ce, _, cout, _ in
+                  chip_smoke.tail_shapes(cfg.backbone_name, cfg.input_size)}
+    return sorted(tails)
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("shape", _variant_tails(), ids=str)
+def test_tail_plan_at_d1_d6(shape, batch):
+    """Every D1..D6 tail's plan fits, covers its output once and takes the
+    kernel's ranges (Ce 16..3456 and Cout 16..576, multiples of 8)."""
+    pixels, ce, cout = shape
+    assert mt.CE_RANGE[0] <= ce <= mt.CE_RANGE[1] and ce % 8 == 0
+    assert mt.COUT_RANGE[0] <= cout <= mt.COUT_RANGE[1] and cout % 8 == 0
+    _check_tail_plan(mt.tail_plan(batch, pixels, ce, cout), batch, pixels,
+                     ce, cout)
+
+
+def test_tail_shapes_and_bound_are_d0s():
+    """D0@512's 16 tails hold 9,580,544 expanded elements an image, and
+    their bound at B = 32 is the bytes: z read, outputs written and skips
+    read in bf16 (0.83 GB), the SE mean and the weights in f32, 0.25 ms at
+    3.35 TB/s."""
+    import chip_smoke
+    assert len(D0_TAILS) == 16 and D0_TAILS[0] == (65536, 32, 8, 16, False)
+    assert D0_TAILS[-1] == (16, 1152, 48, 320, False)
+    assert sum(p * ce for p, ce, *_ in D0_TAILS) == 9580544
+    assert chip_smoke.b6_widest_tail() == (121, 3456, 144, 576, True)
+    ms, by = zip(*(chip_smoke.tail_bound(t, 32) for t in D0_TAILS))
+    assert set(by) == {"bytes"}
+    assert sum(ms) == pytest.approx(0.2502, abs=5e-5)
+    pixels, ce, cse, cout, _ = D0_TAILS[0]
+    want = (2 * 32 * pixels * (ce + cout)
+            + 4 * (32 * ce + 2 * ce * cse + cse + ce + cout * ce + 2 * cout))
+    assert ms[0] == pytest.approx(want / 3.35e9, rel=1e-12)
+
+
+@pytest.fixture(scope="module")
+def d0_backbone():
+    """efficientnet-b0 with seeded weights and BatchNorm statistics."""
+    backbone = EfficientNetFeatures("efficientnet-b0", device="cpu")
+    gen = torch.Generator().manual_seed(11)
+    backbone.reset_parameters(gen)
+    for bn in backbone.modules():
+        if isinstance(bn, BatchNorm):
+            bn.running_mean.copy_(torch.randn(bn.num_features,
+                                              generator=gen) * 0.1)
+            bn.running_var.copy_(torch.rand(bn.num_features,
+                                            generator=gen) + 0.5)
+    return backbone.eval().to(memory_format=torch.channels_last)
+
+
+def _module_tail(block, affine, x, s, inputs, dtype):
+    """The tail as ``fused_backbone_forward`` ran it before kernel F, op for
+    op: x the expanded map (NCHW, channels_last), s its mean (B, Ce, 1, 1)
+    in the activation dtype."""
+    s = block._se_expand(F.silu(block._se_reduce(s)))
+    x = torch.sigmoid(s).to(x.dtype) * x
+    x = _bn(block._project_conv(x), affine[block._bn2], dtype)
+    if block.id_skip:
+        x = x + inputs
+    return x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("index", range(16))
+def test_tail_plain_is_the_module_sequence(d0_backbone, index, dtype):
+    """``mbconv_tail`` on the CPU (its plain version) gives, bit for bit,
+    what the module path's sequence gave at each of D0's 16 blocks: the SE
+    convs with their weights cast, the gate multiply, the project conv, BN2
+    as one addcmul and the skip's add."""
+    block = d0_backbone._blocks[index]
+    affine = mk.fold_bn_affines([block._bn2])
+    _, ce, _, cout, _ = D0_TAILS[index]
+    gen = torch.Generator().manual_seed(index)
+    x = F.silu(torch.randn(2, ce, 4, 4, generator=gen)).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    s = x.float().mean(dim=(2, 3))
+    inputs = (torch.randn(2, cout, 4, 4, generator=gen).to(dtype).contiguous(
+        memory_format=torch.channels_last) if block.id_skip else None)
+    with torch.no_grad():
+        want = _module_tail(block, affine, x, s[:, :, None, None].to(dtype),
+                            inputs, dtype)
+        got = mt.mbconv_tail(
+            x.permute(0, 2, 3, 1), s, block._se_reduce.weight,
+            block._se_reduce.bias, block._se_expand.weight,
+            block._se_expand.bias, block._project_conv.weight,
+            *affine[block._bn2],
+            None if inputs is None else inputs.permute(0, 2, 3, 1))
+    assert got.dtype == dtype
+    assert torch.equal(got.permute(0, 3, 1, 2), want)
+    assert got.permute(0, 3, 1, 2).is_contiguous(
+        memory_format=torch.channels_last)
+
+
+def _module_fused_backbone(backbone, images, dtype):
+    """``fused_backbone_forward`` as it ran before kernel F: kernel E's
+    plain version, then each block's tail as the module path's ops."""
+    x = images.permute(0, 3, 1, 2).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    affine = mk.fold_bn_affines([m for m in backbone.modules()
+                                 if isinstance(m, BatchNorm)])
+    x = F.silu(_bn(backbone._conv_stem(x), affine[backbone._bn0],
+                   torch.float32)).to(dtype)
+    features, blocks = [], iter(backbone._blocks)
+    for repeats in backbone.stage_repeats:
+        for _ in range(repeats):
+            block = next(blocks)
+            ba = block.block_args
+            inputs = x
+            if ba.expand_ratio != 1:
+                z, se_mean = mk.fused_expand_dw_flat(
+                    x.permute(0, 2, 3, 1),
+                    block._expand_conv.weight.flatten(1).t(),
+                    *affine[block._bn0],
+                    block._depthwise_conv.weight[:, 0].permute(1, 2, 0),
+                    *affine[block._bn1], stride=ba.stride)
+                x = z.permute(0, 3, 1, 2)
+                s = se_mean[:, :, None, None].to(dtype)
+            else:
+                x = F.silu(_bn(block._depthwise_conv(x), affine[block._bn1],
+                               torch.float32)).to(dtype)
+                s = x.mean(dim=(2, 3), keepdim=True)
+            x = _module_tail(block, affine, x, s, inputs, dtype)
+        features.append(x)
+    return features
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_backbone_runs_one_tail_a_block(d0_backbone, dtype,
+                                              monkeypatch):
+    """D0's fused backbone at 128 px calls ``mbconv_tail`` once for each of
+    its 16 blocks, the unexpanded one included, and its 7 stages equal, bit
+    for bit, those of the sequence it replaced."""
+    from efficientdet_tpu_torch.models import fused_serving
+    calls = []
+
+    def counting(*args):
+        calls.append(args[0].shape)
+        return mt.mbconv_tail(*args)
+
+    monkeypatch.setattr(fused_serving, "mbconv_tail", counting)
+    images = torch.rand(2, 128, 128, 3, generator=torch.Generator()
+                        .manual_seed(4))
+    with torch.no_grad():
+        got = fused_backbone_forward(d0_backbone, images, dtype)
+        want = _module_fused_backbone(d0_backbone, images, dtype)
+    assert len(calls) == 16
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_tail_wrapper_on_cpu_is_plain_and_not_counted(d0_backbone):
+    block = d0_backbone._blocks[2]
+    gen = torch.Generator().manual_seed(1)
+    z = torch.rand(2, 4, 4, 144, generator=gen).bfloat16()
+    args = (z, z.float().mean(dim=(1, 2)), block._se_reduce.weight,
+            block._se_reduce.bias, block._se_expand.weight,
+            block._se_expand.bias, block._project_conv.weight,
+            torch.rand(24, generator=gen), torch.rand(24, generator=gen),
+            torch.rand(2, 4, 4, 24, generator=gen).bfloat16())
+    before = mt.mbconv_tail.launches
+    with torch.no_grad():
+        got = mt.mbconv_tail(*args)
+        want = mt.mbconv_tail_plain(*args)
+    assert mt.mbconv_tail.launches == before
+    assert torch.equal(got, want)
+    with torch.no_grad(), pytest.raises(ValueError,
+                                        match="unsupported device"):
+        mt.mbconv_tail(*(a.to("meta") for a in args))
+    with pytest.raises(RuntimeError, match="no backward"):
+        mt.mbconv_tail(*args)   # the weights are parameters
