@@ -13,6 +13,12 @@ Capability parity with the reference's configuration surface:
   - ``round_filters`` / ``round_repeats`` compound scaling
     (reference ``models/utils.py:55-76``)
 
+Beyond the copy, the port serves a second family, RetinaNet R-50-FPN
+(``RETINANET``, ``FAMILIES``): ``DetectorConfig.input_size`` may then be
+(H, W), and ``input_hw``, ``neck_channels``, ``bn_epsilon``,
+``anchor_offset`` and ``box_coder`` give what a configuration's family
+decides. The EfficientDet configurations resolve as the JAX package's.
+
 NOTE: the reference deliberately deviates from the EfficientNet paper: stages 5
 and 7 use stride 2 (``s22``) instead of the paper's stride 1 (reference
 ``models/utils.py:264-269``), which makes the 7 stage outputs a clean power-of-two
@@ -25,7 +31,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import re
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,6 +135,71 @@ MODEL_MAP = {
 }
 
 
+# The second family: RetinaNet (Lin et al. 2017, arXiv:1708.02002) as
+# mmdetection v2.28.2 configures it (configs/_base_/models/
+# retinanet_r50_fpn.py): a ResNet of ``depth`` in torchvision's layout, an
+# FPN of ``fpn_channels`` over C3..C5 with ``fpn_levels`` outputs (P6 and P7
+# from extra stride-2 convs), the same RetinaHead and anchors as above. Its
+# test scale is (1333, 800) keeping the ratio, padded to 32: a batch of
+# landscape COCO images fills an 800 x 1344 canvas.
+RETINANET = {
+    "retinanet-r50-fpn": {"input_size": (800, 1344), "depth": 50,
+                          "fpn_channels": 256, "fpn_levels": 5},
+}
+
+# What differs between the families beyond their tables: BatchNorm's eps,
+# the anchor centres' offset in strides (the reference repo's (i + 0.5)
+# stride; mmdetection's AnchorGenerator's i * stride) and the box coder
+# (``ops.boxes.BoxCoder``): the deltas' std, the clamp of the decoded
+# log-sizes (mmdetection's DeltaXYWHBBoxCoder: |log(16 / 1000)|; None
+# decodes unclamped) and the clip (the reference repo's clamps x1, y1 at 0
+# and x2, y2 at the far sides only; mmdetection's every side to the canvas).
+FAMILIES = {
+    "efficientdet": {"bn_epsilon": 1e-3, "box_std": (0.1, 0.1, 0.2, 0.2),
+                     "anchor_offset": 0.5, "box_wh_clamp": None,
+                     "clip_both_ends": False},
+    "retinanet": {"bn_epsilon": 1e-5, "box_std": (1.0, 1.0, 1.0, 1.0),
+                  "anchor_offset": 0.0,
+                  "box_wh_clamp": abs(math.log(16 / 1000)),
+                  "clip_both_ends": True},
+}
+
+SERVE_ONLY = ("{network} serves only: the port trains the EfficientDet "
+              "family (the training step, its loss and the training driver "
+              "are not tested on a ResNet and FPN)")
+
+
+def family_of(network: str) -> str:
+    """'efficientdet' or 'retinanet'; an unknown network raises
+    ``KeyError``."""
+    if network in EFFICIENTDET:
+        return "efficientdet"
+    if network in RETINANET:
+        return "retinanet"
+    raise KeyError(f"unknown network {network!r}: one of "
+                   f"{sorted(EFFICIENTDET) + sorted(RETINANET)}")
+
+
+def default_input_size(network: str):
+    """The network's published input size: an int, or (H, W)."""
+    table = EFFICIENTDET if family_of(network) == "efficientdet" \
+        else RETINANET
+    return table[network]["input_size"]
+
+
+def parse_input_size(text: str):
+    """A flag's input size: ``512`` (a square) or ``800x1344`` (height x
+    width) -> an int, or an (H, W) tuple where the sides differ."""
+    parts = str(text).lower().split("x")
+    if len(parts) not in (1, 2) or not all(p.strip().isdigit()
+                                           for p in parts):
+        raise ValueError(f"input size {text!r} is neither an int nor HxW")
+    sides = [int(p) for p in parts]
+    if min(sides) <= 0:
+        raise ValueError(f"input size {text!r} must be positive")
+    return sides[0] if len(set(sides)) == 1 else tuple(sides)
+
+
 def efficientnet_params(model_name: str) -> Tuple[float, float, int, float]:
     """(width_coefficient, depth_coefficient, resolution, dropout_rate)."""
     return _EFFICIENTNET_PARAMS[model_name]
@@ -229,7 +300,8 @@ class DetectorConfig:
 
     num_classes: int
     network: str = "efficientdet-d0"
-    input_size: Optional[int] = None      # default: EFFICIENTDET[network]
+    # An int (a square) or (H, W); default: the network's table.
+    input_size: Union[int, Tuple[int, int], None] = None
     W_bifpn: Optional[int] = None
     D_bifpn: Optional[int] = None
     D_class: Optional[int] = None
@@ -263,6 +335,11 @@ class DetectorConfig:
     bn_mode: str = "frozen"
 
     def resolve(self) -> "DetectorConfig":
+        if family_of(self.network) == "retinanet":
+            size = self.input_size or RETINANET[self.network]["input_size"]
+            return dataclasses.replace(
+                self, input_size=size if isinstance(size, int)
+                else tuple(size))
         scale = EFFICIENTDET[self.network]
         return dataclasses.replace(
             self,
@@ -274,8 +351,41 @@ class DetectorConfig:
 
     @property
     def backbone_name(self) -> str:
+        if family_of(self.network) == "retinanet":
+            return f"resnet-{RETINANET[self.network]['depth']}"
         return MODEL_MAP[self.network]
 
     @property
     def num_anchors_per_cell(self) -> int:
         return len(self.anchor_ratios) * len(self.anchor_scales)
+
+
+# What a configuration's family decides, for the port's ``DetectorConfig``
+# and for any object with its fields (the tests build the port's modules
+# from the JAX package's configuration too).
+def input_hw(cfg) -> Tuple[int, int]:
+    """(H, W) of the resolved input size."""
+    size = cfg.resolve().input_size
+    return (size, size) if isinstance(size, int) else tuple(size)
+
+
+def neck_channels(cfg) -> int:
+    """The pyramid's width: the head's input channels."""
+    if family_of(cfg.network) == "retinanet":
+        return RETINANET[cfg.network]["fpn_channels"]
+    return cfg.resolve().W_bifpn
+
+
+def bn_epsilon(cfg) -> float:
+    return FAMILIES[family_of(cfg.network)]["bn_epsilon"]
+
+
+def anchor_offset(cfg) -> float:
+    return FAMILIES[family_of(cfg.network)]["anchor_offset"]
+
+
+def box_coder(cfg):
+    """The family's ``ops.boxes.BoxCoder``."""
+    from .ops.boxes import BoxCoder
+    f = FAMILIES[family_of(cfg.network)]
+    return BoxCoder(f["box_std"], f["box_wh_clamp"], f["clip_both_ends"])

@@ -29,10 +29,13 @@ from .transforms import IMAGENET_MEAN, IMAGENET_STD, collate, pad_annotations
 NATIVE_MODES = ("off", "auto", "on")
 
 
-def native_blocker(dataset, image_size: int) -> Optional[str]:
+def native_blocker(dataset, image_size) -> Optional[str]:
     """Why the C++ pipeline cannot make this dataset's batches, or None.
-    It needs a resize target and a dataset of files: ``image_path`` and
-    ``load_annotations``."""
+    It needs a square resize target (an int) and a dataset of files:
+    ``image_path`` and ``load_annotations``."""
+    if not isinstance(image_size, int):
+        return (f"it makes square canvases only, not {image_size} (H, W): "
+                "a rectangular canvas is resized in Python")
     if image_size <= 0:
         return "it needs image_size > 0"
     missing = [a for a in ("image_path", "load_annotations")

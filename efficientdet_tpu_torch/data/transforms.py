@@ -68,23 +68,33 @@ class Augmenter:
 
 
 class Resizer:
-    """Longest-side resize and zero pad to a square canvas; the boxes are
-    scaled and the scale is kept for mapping detections back."""
+    """Resize keeping the ratio until a side meets the canvas, and zero pad
+    the bottom and right (mmdetection's ``Resize(keep_ratio=True)`` and
+    ``Pad``); the boxes are scaled and the scale is kept for mapping
+    detections back. ``size`` is an int (a square canvas: the longest side
+    meets it) or (H, W)."""
 
-    def __init__(self, size: int = 512):
+    def __init__(self, size=512):
         self.size = size
+        self.hw = (size, size) if isinstance(size, int) else tuple(size)
 
     def __call__(self, sample: dict) -> dict:
         img = sample["img"]
         h, w = img.shape[:2]
-        if (h, w) == (self.size, self.size):
+        ch, cw = self.hw
+        if (h, w) == (ch, cw):
             return {**sample, "scale": 1.0}
         import cv2
-        scale = self.size / max(h, w)
-        nh, nw = ((self.size, int(w * scale)) if h > w
-                  else (int(h * scale), self.size))
+        # The side whose ratio to the canvas is the larger meets it; a tie
+        # goes to the width.
+        if ch * w < cw * h:
+            scale = ch / h
+            nh, nw = ch, int(w * scale)
+        else:
+            scale = cw / w
+            nh, nw = int(h * scale), cw
         resized = cv2.resize(img, (nw, nh))
-        canvas = np.zeros((self.size, self.size, 3), dtype=img.dtype)
+        canvas = np.zeros((ch, cw, 3), dtype=img.dtype)
         canvas[:nh, :nw] = resized
         annot = sample["annot"].copy()
         if len(annot):
@@ -180,7 +190,8 @@ def train_transforms(size: int, flip_prob: float = 0.5,
     return pipeline
 
 
-def eval_transforms(size: int, device_normalize: bool = False) -> Compose:
+def eval_transforms(size, device_normalize: bool = False) -> Compose:
+    """Normalize, then ``Resizer(size)``: an int or (H, W) canvas."""
     if device_normalize:
         return Compose([Resizer(size)])
     return Compose([Normalizer(), Resizer(size)])

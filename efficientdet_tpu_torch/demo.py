@@ -28,7 +28,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from .config import EFFICIENTDET, DetectorConfig
+from .config import DetectorConfig, default_input_size, parse_input_size
 from .data import VOC_CLASSES, eval_transforms
 from .device import default_device
 from .models import EfficientDet
@@ -45,7 +45,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "reference .pth")
     p.add_argument("--network", default="efficientdet-d0")
     p.add_argument("--num_class", type=int, default=20)
-    p.add_argument("--input_size", type=int, default=None)
+    p.add_argument("--input_size", type=parse_input_size, default=None,
+                   help="a side (a square canvas) or HxW, e.g. 800x1344")
     p.add_argument("--file_name", default=None, help="input image path")
     p.add_argument("--output", default="docs/demo_output.png")
     p.add_argument("--cam", action="store_true", help="webcam/video loop")
@@ -76,7 +77,7 @@ class Detect:
     def __init__(self, args):
         self.device = default_device(args.device)
         input_size = (args.input_size
-                      or EFFICIENTDET[args.network]["input_size"])
+                      or default_input_size(args.network))
         # the port's blob config OR reference .pth parser-blob recovery
         # (reference demo.py:48-54); flags only needed for bare state_dicts
         saved = ckpt.load_config(args.weight)

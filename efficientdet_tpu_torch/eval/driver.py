@@ -22,6 +22,14 @@ runs pycocotools' COCOeval on it where pycocotools imports). Run examples:
         --dataset_root ~/data/VOCdevkit --weight checkpoint_9.pth
     python -m efficientdet_tpu_torch.eval --dataset synthetic --device cpu \\
         --input_size 128 --synthetic_length 4 --weight checkpoint_0.pth
+    python -m efficientdet_tpu_torch.eval --dataset COCO --bf16 \\
+        --network retinanet-r50-fpn --input_size 800x1344 --weight r50.pth
+
+``--network retinanet-r50-fpn`` serves RetinaNet R-50-FPN
+(``config.RETINANET``) through the same step; ``--input_size`` takes a side
+or HxW, and the eval transform resizes keeping the ratio into that canvas
+and pads the bottom and right. The C++ pipeline makes square canvases only: ``--native_loader
+auto`` takes the Python path for a rectangular one, and ``on`` raises.
 
 ``main(argv)`` returns a summary: the mAP and per-class APs (VOC,
 synthetic) or the COCO stats, the detections kept, the images seen, the
@@ -34,12 +42,13 @@ import argparse
 import dataclasses
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
 
-from ..config import EFFICIENTDET, DetectorConfig
+from ..config import (DetectorConfig, default_input_size,
+                      parse_input_size)
 from ..data import (CocoDataset, SyntheticDetection, VOCDetection,
                     eval_transforms)
 from ..data.loader import EvalBatches, eval_batches, prefetch_iter
@@ -67,7 +76,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "and are refused")
     p.add_argument("--network", default="efficientdet-d0")
     p.add_argument("--num_class", type=int, default=None)
-    p.add_argument("--input_size", type=int, default=None)
+    p.add_argument("--input_size", type=parse_input_size, default=None,
+                   help="a side (a square canvas) or HxW, e.g. 800x1344")
     p.add_argument("--threshold", type=float, default=0.05,
                    help="score threshold (reference eval uses 0.05)")
     p.add_argument("--iou_threshold", type=float, default=0.5,
@@ -114,7 +124,7 @@ class Evaluator:
         saved_cfg = ckpt.load_config(args.weight)
         input_size = (args.input_size
                       or (saved_cfg.input_size if saved_cfg else None)
-                      or EFFICIENTDET[args.network]["input_size"])
+                      or default_input_size(args.network))
         tf = eval_transforms(input_size)
         if args.dataset == "VOC":
             dataset = VOCDetection(args.dataset_root,
@@ -127,7 +137,10 @@ class Evaluator:
             n_cls = (args.num_class
                      or (saved_cfg.num_classes if saved_cfg else 20))
             dataset = SyntheticDetection(length=args.synthetic_length,
-                                         image_size=input_size,
+                                         image_size=(
+                                             input_size
+                                             if isinstance(input_size, int)
+                                             else max(input_size)),
                                          num_classes=n_cls, transform=tf)
         num_classes = args.num_class or dataset.num_classes()
         cfg = saved_cfg or DetectorConfig(num_classes=num_classes,
@@ -166,6 +179,11 @@ class Evaluator:
         return eval_batches(self.dataset, self.args.batch_size,
                             image_size=self.input_size,
                             native=self.args.native_loader)
+
+    def stream(self, batches: EvalBatches) -> Iterator[tuple]:
+        """The pass's batches as the loop takes them: made on a prefetch
+        thread, each wait for the next inside ``eval.data_wait``."""
+        return tracing.waited(prefetch_iter(batches), "eval.data_wait")
 
     def eval_fn(self, images: np.ndarray):
         """One host batch -> Detections on the device."""
@@ -214,7 +232,7 @@ class Evaluator:
                                   max_dets=args.max_detections)
         image_ids, dets_for_json = [], []
         n, kept = len(dataset), 0
-        for idx, images, scales in prefetch_iter(batches):
+        for idx, images, scales in self.stream(batches):
             det = {k: v.cpu().numpy()
                    for k, v in self.eval_fn(images)._asdict().items()}
             for j, i in enumerate(idx):

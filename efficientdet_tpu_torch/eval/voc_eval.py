@@ -19,6 +19,8 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..utils import tracing
+
 
 def compute_overlap(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """(N,4)x(K,4) -> (N,K) IoU (reference eval.py:19-46)."""
@@ -147,7 +149,8 @@ def evaluate_model(dataset, eval_fn, num_classes: int,
     if batches is None:
         batches = eval_batches(dataset, batch_size, image_size=input_size,
                                native=native)
-    for idx, images, scales in prefetch_iter(batches):
+    for idx, images, scales in tracing.waited(prefetch_iter(batches),
+                                              "eval.data_wait"):
         det = eval_fn(images)
         det = {k: v.cpu().numpy() for k, v in det._asdict().items()}
         for j, i in enumerate(idx):

@@ -1,6 +1,9 @@
-"""EfficientDet assembly: backbone -> BiFPN -> RetinaHead, plus anchors, the
+"""Detector assembly: backbone -> neck -> RetinaHead, plus anchors, the
 training forwards and losses, and the NMS tails for serving and for the
-class probabilities.
+class probabilities. The configuration's family picks the backbone and the
+neck: EfficientDet's EfficientNet and BiFPN, or RetinaNet's ResNet and FPN
+(``config.RETINANET``, served only); the head, the anchors, the serving
+forward and both NMS tails are one code path for both.
 
 Counterpart of ``efficientdet_tpu/models/detector.py``. Images go in NHWC
 ``(B, H, W, 3)``, as in the JAX package; inside, tensors are logical NCHW in
@@ -29,7 +32,8 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ..config import DetectorConfig
+from .. import config as config_lib
+from ..config import RETINANET, DetectorConfig
 from ..device import default_device
 from ..ops import anchors as anchor_ops
 from ..ops import losses as loss_ops
@@ -37,12 +41,16 @@ from ..ops import nms as nms_ops
 from ..utils import tracing
 from .bifpn import BiFPN
 from .efficientnet import EfficientNetFeatures
+from .fpn import FPN
+from .resnet import ResNetFeatures
 from .retina_head import RetinaHead
 
 
 class EfficientDet(nn.Module):
-    """The detector network. ``forward(images NHWC)`` -> (cls_probs
-    (B, A, C) f32, box_deltas (B, A, 4) f32).
+    """The detector network, of either family (``config.family_of``):
+    EfficientNet + BiFPN, or ResNet + FPN for RetinaNet; the neck's span
+    is ``model.bifpn`` or ``model.fpn``. ``forward(images NHWC)`` ->
+    (cls_probs (B, A, C) f32, box_deltas (B, A, 4) f32).
 
     ``remat`` recomputes each MBConv block in the backward. The fusion
     kernels (``use_fusion_kernels``) have no backward: asked for gradients,
@@ -60,15 +68,27 @@ class EfficientDet(nn.Module):
         self.config = cfg
         self.dtype = dtype
         self.spatial = None
-        self.backbone = EfficientNetFeatures(cfg.backbone_name,
-                                             bn_mode=cfg.bn_mode, remat=remat,
-                                             device=device)
-        self.neck = BiFPN(self.backbone.feature_channels[-5:], cfg.W_bifpn,
-                          stack=cfg.D_bifpn,
-                          use_fusion_kernels=use_fusion_kernels,
-                          device=device)
+        if config_lib.family_of(cfg.network) == "retinanet":
+            table = RETINANET[cfg.network]
+            self.backbone = ResNetFeatures(table["depth"],
+                                           config_lib.bn_epsilon(cfg),
+                                           bn_mode=cfg.bn_mode, device=device)
+            # The FPN reads C3..C5; its span names it in a trace.
+            self.neck_inputs, self.neck_span = 3, "model.fpn"
+            self.neck = FPN(self.backbone.feature_channels[-3:],
+                            table["fpn_channels"], table["fpn_levels"],
+                            device=device)
+        else:
+            self.backbone = EfficientNetFeatures(
+                cfg.backbone_name, bn_mode=cfg.bn_mode, remat=remat,
+                device=device)
+            self.neck_inputs, self.neck_span = 5, "model.bifpn"
+            self.neck = BiFPN(self.backbone.feature_channels[-5:],
+                              cfg.W_bifpn, stack=cfg.D_bifpn,
+                              use_fusion_kernels=use_fusion_kernels,
+                              device=device)
         self.bbox_head = RetinaHead(
-            cfg.num_classes, cfg.W_bifpn,
+            cfg.num_classes, config_lib.neck_channels(cfg),
             feat_channels=cfg.head_feat_channels,
             stacked_convs=cfg.head_stacked_convs,
             num_anchors=cfg.num_anchors_per_cell, device=device)
@@ -81,7 +101,7 @@ class EfficientDet(nn.Module):
     def reset_parameters(self, generator: Optional[torch.Generator] = None
                          ) -> None:
         """The JAX package's initializers: He-normal fan-out backbone,
-        Xavier-uniform BiFPN, normal(0.01) head with the prior-probability
+        Xavier-uniform neck, normal(0.01) head with the prior-probability
         bias. Values are drawn on the CPU from ``generator`` (default: torch's
         global generator), so a seed gives the same weights on any device."""
         if generator is None:
@@ -103,8 +123,14 @@ class EfficientDet(nn.Module):
         with tracing.span("model.backbone"):
             feats = self.backbone(self._nchw(images), generator,
                                   None if plan is None else plan.image())
-        with tracing.span("model.bifpn"):
-            return self.neck(feats[-5:], plan)
+        return self._neck(feats, plan)
+
+    def _neck(self, feats: Sequence[torch.Tensor], plan=None
+              ) -> List[torch.Tensor]:
+        with tracing.span(self.neck_span):
+            if plan is None:
+                return self.neck(feats[-self.neck_inputs:])
+            return self.neck(feats[-self.neck_inputs:], plan)
 
     def _head(self, features: Sequence[torch.Tensor], **kwargs):
         with tracing.span("model.head"):
@@ -145,8 +171,7 @@ class EfficientDet(nn.Module):
                               ) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
         """``serving_forward`` from precomputed backbone features (NCHW)."""
-        with tracing.span("model.bifpn"):
-            pyramid = self.neck([f.to(self.dtype) for f in features[-5:]])
+        pyramid = self._neck([f.to(self.dtype) for f in features])
         return self._head(pyramid, reduce_classes=True)
 
 
@@ -158,8 +183,9 @@ def anchors_for_config(cfg: DetectorConfig) -> torch.Tensor:
     ``anchors_for_model`` gives its anchors."""
     cfg = cfg.resolve()
     return torch.from_numpy(anchor_ops.anchors_for_image_size(
-        cfg.input_size, tuple(cfg.pyramid_levels), tuple(cfg.anchor_ratios),
-        tuple(cfg.anchor_scales)).copy())
+        config_lib.input_hw(cfg), tuple(cfg.pyramid_levels),
+        tuple(cfg.anchor_ratios), tuple(cfg.anchor_scales),
+        config_lib.anchor_offset(cfg)).copy())
 
 
 def pyramid_shapes_for_model(model: EfficientDet
@@ -171,7 +197,7 @@ def pyramid_shapes_for_model(model: EfficientDet
     twin = EfficientDet(cfg, device="meta").eval()
     with torch.no_grad():
         feats = twin.extract_features(torch.empty(
-            1, cfg.input_size, cfg.input_size, 3, device="meta"))
+            1, *config_lib.input_hw(cfg), 3, device="meta"))
     return tuple((f.shape[2], f.shape[3]) for f in feats)
 
 
@@ -180,7 +206,8 @@ def anchors_for_model(model: EfficientDet) -> torch.Tensor:
     cfg = model.config
     return torch.from_numpy(anchor_ops.anchors_for_feature_shapes(
         pyramid_shapes_for_model(model), tuple(cfg.pyramid_levels),
-        tuple(cfg.anchor_ratios), tuple(cfg.anchor_scales)).copy())
+        tuple(cfg.anchor_ratios), tuple(cfg.anchor_scales),
+        config_lib.anchor_offset(cfg)).copy())
 
 
 def anchor_levels_for_model(model: EfficientDet) -> List[torch.Tensor]:
@@ -237,14 +264,14 @@ def postprocess_detections(cls_probs: torch.Tensor, box_deltas: torch.Tensor,
     ``postprocess_from_scores`` does for the serving outputs."""
     cfg = cfg.resolve()
     return nms_ops.batched_nms_from_deltas(
-        cls_probs, box_deltas, anchors, cfg.input_size, cfg.input_size,
+        cls_probs, box_deltas, anchors, *config_lib.input_hw(cfg),
         score_threshold=(cfg.threshold if score_threshold is None
                          else score_threshold),
         iou_threshold=(cfg.iou_threshold if iou_threshold is None
                        else iou_threshold),
         pre_nms_top_k=cfg.pre_nms_top_k,
         max_detections=cfg.max_detections,
-        approx_topk=cfg.approx_topk)
+        approx_topk=cfg.approx_topk, coder=config_lib.box_coder(cfg))
 
 
 def postprocess_from_scores(scores: torch.Tensor, classes: torch.Tensor,
@@ -256,11 +283,12 @@ def postprocess_from_scores(scores: torch.Tensor, classes: torch.Tensor,
     """NMS tail for ``EfficientDet.serving_forward`` outputs."""
     cfg = cfg.resolve()
     return nms_ops.batched_nms_from_scores(
-        scores, classes, box_deltas, anchors, cfg.input_size, cfg.input_size,
+        scores, classes, box_deltas, anchors,
+        *config_lib.input_hw(cfg),
         score_threshold=(cfg.threshold if score_threshold is None
                          else score_threshold),
         iou_threshold=(cfg.iou_threshold if iou_threshold is None
                        else iou_threshold),
         pre_nms_top_k=cfg.pre_nms_top_k,
         max_detections=cfg.max_detections,
-        approx_topk=cfg.approx_topk)
+        approx_topk=cfg.approx_topk, coder=config_lib.box_coder(cfg))

@@ -7,7 +7,8 @@ imports jax). Semantics follow the reference's ``models/module.py:145-273``:
   - pyramid levels P3..P7, stride 2^l, base size 2^(l+2)
   - 9 anchors per cell: ratios {0.5, 1, 2} (major) x scales
     {2^0, 2^1/3, 2^2/3} (minor)
-  - cell centres at (i + 0.5) * stride
+  - cell centres at (i + 0.5) * stride (``offset`` 0.5; RetinaNet's
+    mmdetection layout has them at i * stride, ``offset`` 0)
   - flattened order (y, x, anchor) per level, levels concatenated P3 -> P7,
     which is the order of the head's NHWC reshape.
 
@@ -42,20 +43,25 @@ def generate_cell_anchors(base_size: float,
 
 
 def shift_anchors(feat_shape: Tuple[int, int], stride: int,
-                  cell_anchors: np.ndarray) -> np.ndarray:
-    """Tile cell anchors across a (H, W) grid; (H*W*A, 4) in (y, x, a) order."""
+                  cell_anchors: np.ndarray, offset: float = 0.5) -> np.ndarray:
+    """Tile cell anchors across a (H, W) grid, cell (y, x) centred at
+    ((x + offset) stride, (y + offset) stride); (H*W*A, 4) in (y, x, a)
+    order."""
     h, w = feat_shape
-    shift_x = (np.arange(w) + 0.5) * stride
-    shift_y = (np.arange(h) + 0.5) * stride
+    shift_x = (np.arange(w) + offset) * stride
+    shift_y = (np.arange(h) + offset) * stride
     sx, sy = np.meshgrid(shift_x, shift_y)
     shifts = np.stack([sx.ravel(), sy.ravel(), sx.ravel(), sy.ravel()], axis=1)
     return (cell_anchors[None, :, :] + shifts[:, None, :]).reshape(-1, 4)
 
 
-def feature_shapes(image_size: int,
+def feature_shapes(image_size,
                    pyramid_levels: Sequence[int] = DEFAULT_PYRAMID_LEVELS):
-    """Per-level (H, W) = ceil(image_size / 2^l)."""
-    return [((image_size + 2 ** l - 1) // 2 ** l,) * 2 for l in pyramid_levels]
+    """Per-level (ceil(H / 2^l), ceil(W / 2^l)) of an int (square) or (H, W)
+    ``image_size``."""
+    h, w = ((image_size, image_size) if isinstance(image_size, int)
+            else image_size)
+    return [(-(-h // 2 ** l), -(-w // 2 ** l)) for l in pyramid_levels]
 
 
 @functools.lru_cache(maxsize=64)
@@ -63,31 +69,34 @@ def anchors_for_feature_shapes(
         shapes: Tuple[Tuple[int, int], ...],
         pyramid_levels: Tuple[int, ...] = DEFAULT_PYRAMID_LEVELS,
         ratios: Tuple[float, ...] = DEFAULT_RATIOS,
-        scales: Tuple[float, ...] = DEFAULT_SCALES) -> np.ndarray:
+        scales: Tuple[float, ...] = DEFAULT_SCALES,
+        offset: float = 0.5) -> np.ndarray:
     """Anchors for explicit per-level (H, W) grids, (A_total, 4) float32,
     read-only (the cache hands the same array to every caller)."""
     per_level = []
     for (fh, fw), level in zip(shapes, pyramid_levels):
         cell = generate_cell_anchors(2 ** (level + 2), ratios, scales)
-        per_level.append(shift_anchors((fh, fw), 2 ** level, cell))
+        per_level.append(shift_anchors((fh, fw), 2 ** level, cell, offset))
     out = np.concatenate(per_level, axis=0).astype(np.float32)
     out.setflags(write=False)
     return out
 
 
 def anchors_for_image_size(
-        image_size: int,
+        image_size,
         pyramid_levels: Tuple[int, ...] = DEFAULT_PYRAMID_LEVELS,
         ratios: Tuple[float, ...] = DEFAULT_RATIOS,
-        scales: Tuple[float, ...] = DEFAULT_SCALES) -> np.ndarray:
-    """All anchors for a square input on the ceil pyramid, P3..P7 order."""
+        scales: Tuple[float, ...] = DEFAULT_SCALES,
+        offset: float = 0.5) -> np.ndarray:
+    """All anchors for an int (square) or (H, W) input on the ceil
+    pyramid, P3..P7 order."""
     shapes = tuple(feature_shapes(image_size, pyramid_levels))
     return anchors_for_feature_shapes(shapes, tuple(pyramid_levels),
-                                      tuple(ratios), tuple(scales))
+                                      tuple(ratios), tuple(scales), offset)
 
 
 def num_anchors_for_image_size(
-        image_size: int,
+        image_size,
         pyramid_levels: Sequence[int] = DEFAULT_PYRAMID_LEVELS,
         anchors_per_cell: int = 9) -> int:
     """The anchor count of the ceil pyramid; at input sizes that are not

@@ -3,12 +3,14 @@
 Counterpart of ``efficientdet_tpu/ops/boxes.py``; the arithmetic is written
 in the same order so that float32 results agree with the JAX functions.
 Boxes are (x1, y1, x2, y2); deltas (dx, dy, dw, dh) are normalized by
-BOX_STD, the RetinaNet convention.
+BOX_STD, the reference repo's convention, or by a configuration's own std
+(``DetectorConfig.box_std``).
 """
 
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -62,21 +64,51 @@ def encode_boxes(anchors: torch.Tensor, gt_boxes: torch.Tensor,
 
 
 def decode_boxes(anchors: torch.Tensor, deltas: torch.Tensor,
-                 std=BOX_STD) -> torch.Tensor:
-    """Apply predicted deltas to anchors -> (..., 4) x1y1x2y2."""
+                 std=BOX_STD, wh_clamp: Optional[float] = None
+                 ) -> torch.Tensor:
+    """Apply predicted deltas to anchors -> (..., 4) x1y1x2y2. ``wh_clamp``
+    bounds the scaled log-sizes ``dw * std``, ``dh * std`` to [-c, c] before
+    the exp, as mmdetection's ``DeltaXYWHBBoxCoder`` does (None: no clamp,
+    the reference repo's decode)."""
     acx, acy, aw, ah = boxes_to_centers(anchors)
     pcx = acx + deltas[..., 0] * std[0] * aw
     pcy = acy + deltas[..., 1] * std[1] * ah
-    pw = torch.exp(deltas[..., 2] * std[2]) * aw
-    ph = torch.exp(deltas[..., 3] * std[3]) * ah
+    dw, dh = deltas[..., 2] * std[2], deltas[..., 3] * std[3]
+    if wh_clamp is not None:
+        dw, dh = dw.clamp(-wh_clamp, wh_clamp), dh.clamp(-wh_clamp, wh_clamp)
+    pw = torch.exp(dw) * aw
+    ph = torch.exp(dh) * ah
     return torch.stack([pcx - 0.5 * pw, pcy - 0.5 * ph,
                         pcx + 0.5 * pw, pcy + 0.5 * ph], dim=-1)
 
 
-def clip_boxes(boxes: torch.Tensor, height: int, width: int) -> torch.Tensor:
+def clip_boxes(boxes: torch.Tensor, height: int, width: int,
+               both_ends: bool = False) -> torch.Tensor:
     """Clamp x1/y1 at 0 and x2/y2 at width/height only, as the reference's
-    ClipBoxes does."""
+    ClipBoxes does; ``both_ends`` clamps every x to [0, width] and every y
+    to [0, height], as mmdetection's ``delta2bbox`` does."""
+    if both_ends:
+        return torch.stack([boxes[..., 0].clamp(0.0, float(width)),
+                            boxes[..., 1].clamp(0.0, float(height)),
+                            boxes[..., 2].clamp(0.0, float(width)),
+                            boxes[..., 3].clamp(0.0, float(height))], dim=-1)
     return torch.stack([boxes[..., 0].clamp_min(0.0),
                         boxes[..., 1].clamp_min(0.0),
                         boxes[..., 2].clamp_max(float(width)),
                         boxes[..., 3].clamp_max(float(height))], dim=-1)
+
+
+class BoxCoder(NamedTuple):
+    """A configuration's decode and clip: the deltas' ``std``, the clamp of
+    the scaled log-sizes (``decode_boxes``' ``wh_clamp``) and
+    ``clip_boxes``' ``both_ends``. The default is the reference repo's."""
+
+    std: Tuple[float, ...] = BOX_STD
+    wh_clamp: Optional[float] = None
+    clip_both_ends: bool = False
+
+    def decode_clip(self, anchors: torch.Tensor, deltas: torch.Tensor,
+                    height: int, width: int) -> torch.Tensor:
+        return clip_boxes(decode_boxes(anchors, deltas, self.std,
+                                       self.wh_clamp),
+                          height, width, self.clip_both_ends)

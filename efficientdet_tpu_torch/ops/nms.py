@@ -148,7 +148,9 @@ def batched_nms_from_deltas(cls_probs: torch.Tensor,   # (B, A, C)
                             iou_threshold: float = 0.5,
                             pre_nms_top_k: int = 1000,
                             max_detections: int = 100,
-                            approx_topk: bool = False) -> Detections:
+                            approx_topk: bool = False,
+                            coder: box_ops.BoxCoder = box_ops.BoxCoder()
+                            ) -> Detections:
     """NMS tail for ``EfficientDet.forward``'s probabilities: the class
     max and first-index argmax over (B, A, C) (``max_argmax``), then
     ``batched_nms_from_scores`` (decode and clip only the top K, greedy
@@ -158,7 +160,7 @@ def batched_nms_from_deltas(cls_probs: torch.Tensor,   # (B, A, C)
         scores_all, classes_all, box_deltas, anchors, image_height,
         image_width, score_threshold=score_threshold,
         iou_threshold=iou_threshold, pre_nms_top_k=pre_nms_top_k,
-        max_detections=max_detections, approx_topk=approx_topk)
+        max_detections=max_detections, approx_topk=approx_topk, coder=coder)
 
 
 def nms_candidates(scores_all: torch.Tensor,   # (B, A)
@@ -166,17 +168,18 @@ def nms_candidates(scores_all: torch.Tensor,   # (B, A)
                    box_deltas: torch.Tensor,   # (B, A, 4)
                    anchors: torch.Tensor,      # (A, 4)
                    image_height: int, image_width: int,
-                   score_threshold: float, pre_nms_top_k: int):
-    """Threshold, exact top-K, then decode and clip only the K candidates:
-    (scores (B, K) f32 with 0 below the threshold, boxes (B, K, 4) f32,
-    classes (B, K))."""
+                   score_threshold: float, pre_nms_top_k: int,
+                   coder: box_ops.BoxCoder = box_ops.BoxCoder()):
+    """Threshold, exact top-K, then decode and clip only the K candidates
+    by ``coder``: (scores (B, K) f32 with 0 below the threshold, boxes
+    (B, K, 4) f32, classes (B, K))."""
     k = min(pre_nms_top_k, scores_all.shape[1])
     scores = torch.where(scores_all > score_threshold, scores_all.float(), 0.0)
     top_scores, top_idx = _top_k(scores, k)
     top_deltas = box_deltas.float().gather(
         1, top_idx[..., None].expand(-1, -1, 4))
-    top_boxes = box_ops.decode_boxes(anchors[top_idx], top_deltas)
-    top_boxes = box_ops.clip_boxes(top_boxes, image_height, image_width)
+    top_boxes = coder.decode_clip(anchors[top_idx], top_deltas,
+                                  image_height, image_width)
     return top_scores, top_boxes, classes_all.gather(1, top_idx)
 
 
@@ -189,14 +192,16 @@ def batched_nms_from_scores(scores_all: torch.Tensor,   # (B, A)
                             iou_threshold: float = 0.5,
                             pre_nms_top_k: int = 1000,
                             max_detections: int = 100,
-                            approx_topk: bool = False) -> Detections:
+                            approx_topk: bool = False,
+                            coder: box_ops.BoxCoder = box_ops.BoxCoder()
+                            ) -> Detections:
     """NMS tail for per-anchor (score, class) vectors: ``nms_candidates``,
     then greedy NMS to D. ``approx_topk`` is accepted for the JAX signature
     and selects exactly."""
     del approx_topk
     top_scores, top_boxes, top_classes = nms_candidates(
         scores_all, classes_all, box_deltas, anchors, image_height,
-        image_width, score_threshold, pre_nms_top_k)
+        image_width, score_threshold, pre_nms_top_k, coder)
     out_s, out_i = nms_select(top_scores, top_boxes, iou_threshold,
                               max_detections)
     return _pack(out_s, out_i, top_boxes, top_classes)

@@ -384,6 +384,12 @@ class SpatialPlan:
         device."""
         from ..models.detector import pyramid_shapes_for_model
         from ..models.retina_head import RetinaHead
+        from ..config import family_of
+        if family_of(model.config.network) != "efficientdet":
+            raise NotImplementedError(
+                f"the spatial axis splits the EfficientNet and BiFPN's rows "
+                f"only; {model.config.network}'s ResNet and FPN have no band "
+                "plan: serve it on the data axis")
         if not isinstance(model.bbox_head, RetinaHead):
             raise NotImplementedError(
                 f"the spatial axis runs the RetinaHead detector only, not "

@@ -58,7 +58,7 @@ from typing import Callable, Dict, Iterable, Iterator, List, Optional
 
 import torch
 
-from ..config import EFFICIENTDET, DetectorConfig
+from ..config import EFFICIENTDET, SERVE_ONLY, DetectorConfig, family_of
 from ..data import (CocoDataset, DataLoader, SyntheticDetection, VOCDetection,
                     eval_transforms, get_augmentation, train_transforms)
 from ..models import EfficientDet
@@ -301,6 +301,8 @@ class Trainer:
     process."""
 
     def __init__(self, args: argparse.Namespace, mesh: Optional[Mesh] = None):
+        if family_of(args.network) != "efficientdet":
+            raise ValueError(SERVE_ONLY.format(network=args.network))
         if mesh is None:
             if local_ranks_to_spawn(args):
                 raise ValueError(

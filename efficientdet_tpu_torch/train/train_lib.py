@@ -35,7 +35,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..config import DetectorConfig
+from ..config import DetectorConfig, family_of, input_hw
 from ..models.detector import (EfficientDet, anchor_levels_for_model,
                                detection_loss_from_level_logits,
                                postprocess_from_scores)
@@ -302,7 +302,8 @@ def make_eval_step(model: EfficientDet, cfg: DetectorConfig,
     (``models/fused_serving.py``), reading the same weights; it needs frozen
     BN (eval), and raises ``ValueError`` here, naming both grids, where the
     fused path's pyramid at ``cfg.input_size`` is not the model's
-    (``check_fused_grid``: D7 at 1636 px, or D0 at 164 px).
+    (``check_fused_grid``: D7 at 1636 px, or D0 at 164 px), and for a
+    family without an EfficientNet backbone (RetinaNet's ResNet).
 
     Under the spatial axis (``parallel.shard_eval_step`` binds
     ``model.spatial``) the images are the rank's band of rows, and the
@@ -311,7 +312,13 @@ def make_eval_step(model: EfficientDet, cfg: DetectorConfig,
     return None."""
     cfg = cfg.resolve()
     if fused_backbone:
-        check_fused_grid(model.backbone, cfg.input_size, cfg.input_size)
+        if family_of(cfg.network) != "efficientdet":
+            raise ValueError(
+                f"fused_backbone serves the EfficientNet backbone's MBConv "
+                f"blocks through kernels E and F; {cfg.network} has a "
+                f"{cfg.backbone_name} backbone, which has none: serve it "
+                "with fused_backbone=False")
+        check_fused_grid(model.backbone, *input_hw(cfg))
     modules = list(model.modules())
 
     @torch.inference_mode()

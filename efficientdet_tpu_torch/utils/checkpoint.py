@@ -34,7 +34,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import DetectorConfig
+from ..config import DetectorConfig, family_of
 from . import torch_bridge
 
 _CHECKPOINT = re.compile(r"^checkpoint_(\d+)\.pth$")
@@ -164,8 +164,9 @@ def load_config(path: str) -> Optional[DetectorConfig]:
     blob = torch_bridge.load_torch_checkpoint(path)
     if isinstance(blob, dict) and "config" in blob:
         fields = dict(blob["config"])
-        for key in ("pyramid_levels", "anchor_ratios", "anchor_scales"):
-            if fields.get(key) is not None:
+        for key in ("input_size", "pyramid_levels", "anchor_ratios",
+                    "anchor_scales"):
+            if isinstance(fields.get(key), (list, tuple)):
                 fields[key] = tuple(fields[key])
         return DetectorConfig(**fields)
     meta = load_pth_meta(path)
@@ -179,11 +180,13 @@ def load_config(path: str) -> Optional[DetectorConfig]:
 def _load_weights_from_blob(blob, model) -> None:
     state_dict = blob.get("state_dict", blob) if isinstance(blob, dict) \
         else blob
+    known = (torch_bridge.retinanet_key
+             if family_of(model.config.network) == "retinanet"
+             else torch_bridge._map_detector_key)
     state_dict = {
         k: v for k, v in torch_bridge.strip_module_prefix(
             dict(state_dict)).items()
-        if k.endswith("num_batches_tracked")
-        or torch_bridge._map_detector_key(k) is not None}
+        if k.endswith("num_batches_tracked") or known(k) is not None}
     result = model.load_state_dict(state_dict, strict=False)
     missing = [k for k in result.missing_keys
                if not k.endswith("num_batches_tracked")]

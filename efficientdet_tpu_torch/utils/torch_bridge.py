@@ -18,6 +18,7 @@ norms) have key maps of their own for ``import_state``/``export_state``.
 from __future__ import annotations
 
 import argparse
+import re
 from typing import Any, Callable, Dict, Mapping, Tuple
 
 import numpy as np
@@ -127,6 +128,30 @@ def _map_detector_key(key: str):
             leaf, fn = _conv_leaf(parts[2])
             return ("params", ("head", group, leaf), fn)
     raise KeyError(f"unrecognized detector key: {key}")
+
+
+# RetinaNet R-50-FPN's keys, mmdetection's schema (which is the port's
+# module names): a torchvision-layout ResNet, the FPN, the RetinaHead.
+_RETINANET_KEY = re.compile(
+    r"^(backbone\.(conv1|bn1|layer[1-4]\.\d+\.(conv[1-3]|bn[1-3]|"
+    r"downsample\.[01]))"
+    r"|neck\.(lateral_convs|fpn_convs)\.\d+\.conv"
+    r"|bbox_head\.(cls_convs|reg_convs)\.\d+\.conv"
+    r"|bbox_head\.retina_(cls|reg))"
+    r"\.(weight|bias|running_mean|running_var|num_batches_tracked)$")
+
+
+def retinanet_key(key: str):
+    """A RetinaNet state_dict key as the port names it (mmdetection's
+    ``retinanet_r50_fpn`` schema), or None for torchvision's classifier
+    (``backbone.fc``), which the detector does not use; any other key
+    raises ``KeyError``. There is no JAX RetinaNet, so nothing maps it to a
+    flax path."""
+    if key.startswith("backbone.fc."):
+        return None
+    if not _RETINANET_KEY.match(key):
+        raise KeyError(f"unrecognized RetinaNet key: {key}")
+    return key
 
 
 def _map_bifpn_key(key: str):

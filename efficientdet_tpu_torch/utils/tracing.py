@@ -40,7 +40,7 @@ from __future__ import annotations
 import itertools
 import threading
 import time
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, Iterable, Iterator, List, NamedTuple, Optional
 
 import torch
 
@@ -55,8 +55,12 @@ SPANS = (
     "graph.record", "graph.warmup", "graph.capture", "graph.verify",
     # Set-up of the eval entry point and the demo.
     "setup.build", "setup.load_weights",
-    # The model's forwards (eager steps only), and the serving tail.
-    "model.backbone", "model.bifpn", "model.head", "serve.postprocess",
+    # The model's forwards (eager steps only: EfficientDet's BiFPN or
+    # RetinaNet's FPN as the neck), and the serving tail.
+    "model.backbone", "model.bifpn", "model.fpn", "model.head",
+    "serve.postprocess",
+    # The eval entry point's wait for the loader's next batch.
+    "eval.data_wait",
     # The training driver's step and the train step's parts.
     "train.step", "train.data_wait", "train.forward_loss", "train.backward",
     "train.reduce", "train.apply",
@@ -135,6 +139,21 @@ def span(name: str):
     if not _on:
         return _OFF
     return _On(name)
+
+
+def waited(items: Iterable, name: str) -> Iterator:
+    """``items``' items, each wait for the next inside the span ``name``
+    (a loop's wait for its loader: ``eval.data_wait``)."""
+    it = iter(items)
+    while True:
+        with span(name):
+            item = next(it, _END)
+        if item is _END:
+            return
+        yield item
+
+
+_END = object()
 
 
 def enable() -> None:

@@ -597,6 +597,52 @@ def test_graphed_step_equals_eager_f32(cuda):
     assert len(step.graphs) == 1
 
 
+def test_retinanet_graphed_step_on_the_card(cuda):
+    """RetinaNet R-50-FPN at 256 x 384, f32 with TF32 off, B = 2, weights
+    set by the plain reference (``plain_retinanet``): the graphed step's
+    detections equal the eager step's bit for bit on two batches through
+    one graph, one NMS launch a replay, every box inside the canvas; the
+    logits lie within 1e-3 of the reference's."""
+    import plain_retinanet as plain
+    from efficientdet_tpu_torch import graphed_eval_step
+    from efficientdet_tpu_torch.train import graphed
+    from efficientdet_tpu_torch.train.train_lib import maybe_normalize_images
+    hw = (256, 384)
+    cfg = DetectorConfig(num_classes=80, network="retinanet-r50-fpn",
+                         input_size=hw, threshold=0.05).resolve()
+    model = EfficientDet(cfg, device=cuda,
+                         generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    batches = [torch.randint(0, 256, (2, *hw, 3), dtype=torch.uint8,
+                             generator=gen).to(cuda) for _ in range(3)]
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    with torch.no_grad(), plain.exact():
+        plain.Net(state, 80, calibrate=True)(plain.normalize(batches[2]))
+        model.load_state_dict(state)
+        model = model.eval().to(memory_format=torch.channels_last)
+        eager = make_eval_step(model, cfg)
+        step = graphed_eval_step(eager)
+        before = nms_select.launches
+        step(batches[0])
+        assert nms_select.launches - before == graphed.WARMUP + 1
+        for images in batches[:2]:
+            before = nms_select.launches
+            got = step(images)
+            torch.cuda.synchronize()
+            assert nms_select.launches - before == 1
+            want = eager(images)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+            b = got.boxes[got.valid]
+            assert int(got.valid.sum()) > 0 and b.min() >= 0
+            assert b[:, 0::2].max() <= hw[1] and b[:, 1::2].max() <= hw[0]
+        (cls_l, _), _ = plain.Net(state, 80)(plain.normalize(batches[0]))
+        logits, _ = model.train_forward_levels(
+            maybe_normalize_images(batches[0]))
+    for g, w in zip(logits, cls_l):
+        assert float((g.float() - w).abs().max()) < 1e-3
+    assert len(step.graphs) == 1
+
+
 def test_graph_serves_eval_mode_after_a_train_step(cuda):
     """A graph captured before a train step: the step leaves the model in
     training mode with new weights (an AdamW update and ``train`` BN's
