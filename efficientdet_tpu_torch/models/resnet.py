@@ -13,23 +13,46 @@ the detector's ``backbone.`` prefix.
 
 Tensors are logical NCHW in ``channels_last`` memory, as in the
 EfficientNet; a conv casts its weight to the activation dtype.
+
+Serving route: where gradients are off and every BatchNorm reads its
+running statistics (frozen mode, or eval), ``ResNetFeatures`` folds the BNs
+to float32 affines inside the step (``serving_affines``) and follows each
+conv by one ``kernels.conv_epilogue`` pass (kernel G on the card): its BN,
+the block's skip (the identity, or the downsample conv's raw output with its
+BN's affine) and the ReLU, rounded to the dtype once, where the module path
+rounds after each. 49 passes a ResNet-50 step: the stem and 16 blocks x 3.
+Training and any forward under autograd take the module path.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..device import default_device
+from ..kernels.conv_epilogue import conv_epilogue
+from ..kernels.mbconv_kernel import fold_bn_affines
 from .layers import BatchNorm, ConvSame, he_normal_fan_out_
 
 # Bottlenecks per stage (He et al. 2016, Table 1): the depth RETINANET
 # serves.
 DEPTHS = {50: (3, 4, 6, 3)}
 EXPANSION = 4
+
+
+def serving_affines(module: nn.Module) -> Optional[Dict[BatchNorm, Tuple]]:
+    """{BatchNorm: (scale, bias)} of every BN in ``module``, folded in
+    float32 (``fold_bn_affines``), where the serving route applies: no
+    gradient is being recorded and every BN reads its running statistics.
+    Else None, and the module path runs."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    if torch.is_grad_enabled() or any(
+            bn.mode != "frozen" and bn.training for bn in bns):
+        return None
+    return fold_bn_affines(bns)
 
 
 class Bottleneck(nn.Module):
@@ -54,7 +77,19 @@ class Bottleneck(nn.Module):
                 ConvSame(cin, cout, 1, stride=stride, bias=False,
                          device=device), bn(cout))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                affine: Optional[Dict[BatchNorm, Tuple]] = None
+                ) -> torch.Tensor:
+        """The block; with ``affine`` (``serving_affines`` of a module that
+        holds it) the serving route's three ``conv_epilogue`` passes."""
+        if affine is not None:
+            y = conv_epilogue(self.conv1(x), *affine[self.bn1])
+            y = conv_epilogue(self.conv2(y), *affine[self.bn2])
+            if self.downsample is None:
+                return conv_epilogue(self.conv3(y), *affine[self.bn3], x)
+            conv, bn = self.downsample
+            return conv_epilogue(self.conv3(y), *affine[self.bn3], conv(x),
+                                 *affine[bn])
         y = torch.relu(self.bn1(self.conv1(x)))
         y = torch.relu(self.bn2(self.conv2(y)))
         y = self.bn3(self.conv3(y))
@@ -99,11 +134,16 @@ class ResNetFeatures(nn.Module):
         if band is not None:
             raise NotImplementedError("the ResNet backbone has no spatial "
                                       "axis")
-        x = torch.relu(self.bn1(self.conv1(x)))
+        affine = serving_affines(self)
+        if affine is None:
+            x = torch.relu(self.bn1(self.conv1(x)))
+        else:
+            x = conv_epilogue(self.conv1(x), *affine[self.bn1])
         x = F.max_pool2d(x, 3, 2, 1)
         features = []
         for i in range(len(self.feature_channels)):
-            x = getattr(self, f"layer{i + 1}")(x)
+            for block in getattr(self, f"layer{i + 1}"):
+                x = block(x, affine)
             features.append(x)
         return features
 

@@ -53,7 +53,7 @@ from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
-from ..kernels import fusion, mbconv_kernel, mbconv_tail
+from ..kernels import conv_epilogue, fusion, mbconv_kernel, mbconv_tail
 from ..kernels.nms_kernel import nms_select
 from ..ops.nms import Detections
 from ..utils import tracing
@@ -63,7 +63,7 @@ WARMUP = 3
 # Every kernel wrapper whose ``.launches`` a replay credits.
 COUNTED = (nms_select, fusion.fuse_topdown, fusion.fuse_bottomup,
            mbconv_kernel.fused_expand_dw_flat, mbconv_kernel.fused_expand_dw,
-           mbconv_tail.mbconv_tail)
+           mbconv_tail.mbconv_tail, conv_epilogue.conv_epilogue)
 
 
 class Graph(NamedTuple):

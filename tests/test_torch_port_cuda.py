@@ -17,7 +17,8 @@ import pytest
 import torch
 
 from efficientdet_tpu_torch import DetectorConfig, EfficientDet, make_eval_step
-from efficientdet_tpu_torch.kernels import fusion, mbconv_kernel, mbconv_tail
+from efficientdet_tpu_torch.kernels import (conv_epilogue, fusion, mbconv_kernel,
+                                           mbconv_tail)
 from efficientdet_tpu_torch.kernels.nms_kernel import nms_select
 
 MBCONV = {"v1": (mbconv_kernel.fused_expand_dw,
@@ -396,6 +397,87 @@ def test_mbconv_tail_rejects_bad_input(cuda):
     assert mbconv_tail.mbconv_tail.launches == before
 
 
+# The distinct passes of kernel G in the RetinaNet cell's serving step
+# (``chip_smoke.epilogue_shapes``: the stem, C2..C5 without a skip, with the
+# identity and with the downsample's output and affine).
+EPILOGUE_PASSES = 16
+
+
+def _epilogue_pass(case):
+    from chip_smoke import epilogue_shapes
+    passes = list(epilogue_shapes())
+    assert len(passes) == EPILOGUE_PASSES
+    return passes[case]
+
+
+@pytest.mark.parametrize("case", range(EPILOGUE_PASSES))
+def test_conv_epilogue_matches_plain(cuda, case):
+    """Kernel G at each distinct pass of the RetinaNet cell's step (800 x
+    1344, B = 8, bf16): one launch, the output in y's strides, equal to the
+    plain version bit for bit (both round each multiply and add on its own;
+    the kernel uses no fused multiply-add)."""
+    from chip_smoke import epilogue_inputs
+    shape, skip = _epilogue_pass(case)
+    args, _ = epilogue_inputs(
+        torch, torch.Generator(device=cuda).manual_seed(case), shape, skip)
+    before = conv_epilogue.conv_epilogue.launches
+    got = conv_epilogue.conv_epilogue(*args)
+    torch.cuda.synchronize()
+    assert conv_epilogue.conv_epilogue.launches == before + 1
+    want = conv_epilogue.conv_epilogue_plain(*args)
+    assert got.dtype == torch.bfloat16 and got.stride() == args[0].stride()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("skip", [None, "identity", "downsample"])
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.float32, (2, 2048, 5, 7)), (torch.float32, (3, 64, 9, 11)),
+    (torch.bfloat16, (2, 96, 7, 5)), (torch.bfloat16, (1, 4096, 1, 3))])
+def test_conv_epilogue_other_shapes(cuda, dtype, shape, skip):
+    """float32 (4 values a vector, 512 threads a block at 2048 channels),
+    96 channels (12 vectors a row), the widest row the kernel takes and
+    maps of a few pixels: equal to the plain version bit for bit, twice."""
+    from chip_smoke import epilogue_inputs
+    args, _ = epilogue_inputs(torch, torch.Generator(device=cuda).manual_seed(
+        shape[1]), shape, skip, dtype)
+    got = conv_epilogue.conv_epilogue(*args)
+    again = conv_epilogue.conv_epilogue(*args)
+    want = conv_epilogue.conv_epilogue_plain(*args)
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert torch.equal(got, again)
+
+
+def test_conv_epilogue_rejects_bad_input(cuda):
+    """Wrong device, dtype, layout, shapes and channel counts: a
+    ``ValueError`` or ``TypeError`` before any launch."""
+    from chip_smoke import epilogue_inputs
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    y, s, b, k, s2, b2 = epilogue_inputs(torch, gen, (2, 64, 4, 6),
+                                         "downsample")[0]
+    fn = conv_epilogue.conv_epilogue
+    before = fn.launches
+    with pytest.raises(ValueError, match="different devices"):
+        fn(y, s.cpu(), b)
+    with pytest.raises(TypeError):
+        fn(y, s, b, k.float())
+    with pytest.raises(TypeError):
+        fn(y, s.double(), b)
+    with pytest.raises(ValueError, match="channels_last"):
+        fn(y.contiguous(), s, b)
+    with pytest.raises(ValueError, match="strides"):
+        fn(y, s, b, k.contiguous())
+    with pytest.raises(ValueError, match="shapes"):
+        fn(y, s[:32], b)
+    with pytest.raises(ValueError, match="come together"):
+        fn(y, s, b, k, s2)
+    with pytest.raises(ValueError, match="come together"):
+        fn(y, s, b, None, s2, b2)
+    odd = epilogue_inputs(torch, gen, (2, 12, 4, 6), None)[0]
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fn(*odd)
+    assert fn.launches == before
+
+
 def _small_batch(device, b=2):
     from efficientdet_tpu_torch.data import (SyntheticDetection, collate,
                                              to_device)
@@ -428,12 +510,15 @@ def _wrapper_calls(device):
                                  _mbconv_args(device)),
         "mbconv_tail": (mbconv_tail.mbconv_tail, _tail_args(device)),
         "nms_select": (nms_select, (r(1, 10), boxes.to(device), 0.5, 5)),
+        "conv_epilogue": (conv_epilogue.conv_epilogue,
+                          (r(1, 16, 4, 4, layout=cl), r(16), r(16))),
     }
 
 
 @pytest.mark.parametrize("name", ["fuse_topdown", "fuse_bottomup",
                                   "fused_expand_dw", "fused_expand_dw_flat",
-                                  "mbconv_tail", "nms_select"])
+                                  "mbconv_tail", "nms_select",
+                                  "conv_epilogue"])
 def test_kernel_wrappers_refuse_gradients(cuda, name):
     """Asked for a gradient, a wrapper raises before it launches (the
     kernel has no backward); without grad mode it launches once."""
@@ -641,6 +726,58 @@ def test_retinanet_graphed_step_on_the_card(cuda):
     for g, w in zip(logits, cls_l):
         assert float((g.float() - w).abs().max()) < 1e-3
     assert len(step.graphs) == 1
+
+
+def test_retinanet_bf16_graphed_step_launches_kernel_g(cuda):
+    """RetinaNet R-50-FPN in bf16 at 256 x 384, B = 2, weights set by the
+    plain reference: the eager step launches kernel G 49 times (the stem
+    and 16 blocks x 3), a graphed call replays 49 and its detections equal
+    the eager step's; ``tracing.drain`` reads the counter as
+    ``kernel.conv_epilogue``; a D0 graphed step launches none."""
+    import plain_retinanet as plain
+    from efficientdet_tpu_torch import graphed_eval_step
+    from efficientdet_tpu_torch.train import graphed
+    from efficientdet_tpu_torch.utils import tracing
+    hw = (256, 384)
+    fn = conv_epilogue.conv_epilogue
+    cfg = DetectorConfig(num_classes=80, network="retinanet-r50-fpn",
+                         input_size=hw, threshold=0.05).resolve()
+    model = EfficientDet(cfg, dtype=torch.bfloat16, device=cuda,
+                         generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(2)
+    batches = [torch.randint(0, 256, (2, *hw, 3), dtype=torch.uint8,
+                             generator=gen).to(cuda) for _ in range(3)]
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    with torch.no_grad(), plain.exact():
+        plain.Net(state, 80, calibrate=True)(plain.normalize(batches[2]))
+    model.load_state_dict(state)
+    model = model.eval().to(memory_format=torch.channels_last)
+    eager = make_eval_step(model, cfg)
+    step = graphed_eval_step(eager)
+    before = fn.launches
+    eager(batches[0])
+    torch.cuda.synchronize()
+    assert fn.launches - before == 49
+    step(batches[0])
+    assert fn.launches - before == 49 * (2 + graphed.WARMUP)
+    for images in batches[:2]:
+        before = tracing.drain()["counters"]["kernel.conv_epilogue"]
+        got = step(images)
+        torch.cuda.synchronize()
+        assert tracing.drain()["counters"]["kernel.conv_epilogue"] \
+            == before + 49
+        want = eager(images)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert int(got.valid.sum()) > 0
+    assert len(step.graphs) == 1
+    d0 = EfficientDet(DetectorConfig(**SMALL), device=cuda).eval()
+    before = fn.launches
+    d0_step = graphed_eval_step(make_eval_step(
+        d0.to(memory_format=torch.channels_last), DetectorConfig(**SMALL)))
+    for _ in range(2):
+        d0_step(batches[0][:, :128, :128].contiguous())
+    torch.cuda.synchronize()
+    assert fn.launches == before
 
 
 def test_graph_serves_eval_mode_after_a_train_step(cuda):

@@ -268,3 +268,166 @@ def test_rectangular_canvas_and_sizes():
     assert dataclasses.asdict(eff)["input_size"] == 512
     assert port_config.input_hw(eff) == (512, 512)
     assert port_config.anchor_offset(eff) == 0.5
+
+
+# ------------------------------------------------ the serving route (kernel G)
+def _blocks(seed=0):
+    """layer2's first bottleneck (a downsample at stride 2) and its second
+    (the identity skip), at RetinaNet's widths, with BN statistics and
+    affines drawn from ``seed`` so that no BN is the identity."""
+    from efficientdet_tpu_torch.models.layers import BatchNorm
+    from efficientdet_tpu_torch.models.resnet import Bottleneck
+    g = torch.Generator().manual_seed(seed)
+    blocks = [Bottleneck(256, 128, 2, 1e-5, "frozen", device="cpu"),
+              Bottleneck(512, 128, 1, 1e-5, "frozen", device="cpu")]
+    for block in blocks:
+        for m in block.modules():
+            if isinstance(m, BatchNorm):
+                c = m.num_features
+                m.running_mean.copy_(torch.randn(c, generator=g) * 0.2)
+                m.running_var.copy_(torch.rand(c, generator=g) + 0.5)
+                m.weight.data.copy_(torch.rand(c, generator=g) + 0.5)
+                m.bias.data.copy_(torch.randn(c, generator=g) * 0.2)
+            elif m.__class__.__name__ == "ConvSame":
+                m.weight.data.copy_(torch.randn(m.weight.shape, generator=g)
+                                    / m.weight[0].numel() ** 0.5)
+    return [b.eval().to(memory_format=torch.channels_last) for b in blocks]
+
+
+def _counting(monkeypatch):
+    """Counts the ResNet's calls of ``conv_epilogue`` (on the CPU it runs
+    its plain version and launches nothing)."""
+    from efficientdet_tpu_torch.models import resnet
+    calls = []
+    wrapped = resnet.conv_epilogue
+
+    def counting(*args):
+        calls.append(len(args) > 3)
+        return wrapped(*args)
+
+    monkeypatch.setattr(resnet, "conv_epilogue", counting)
+    return calls
+
+
+@pytest.mark.parametrize("which", ["downsample", "identity"])
+def test_serving_route_matches_module_path(which, monkeypatch):
+    """A bottleneck's serving route (folded BNs, ``conv_epilogue``'s plain
+    version: BN, skip and ReLU rounded once) against its module path (BN,
+    ReLU, the add, the ReLU), float32, at the file's tolerances; three
+    passes, the last with the skip."""
+    from efficientdet_tpu_torch.models.resnet import serving_affines
+    block = _blocks()[which == "identity"]
+    cin = block.conv1.weight.shape[1]
+    x = torch.randn(2, cin, 20, 28, generator=torch.Generator().manual_seed(
+        3)).relu().contiguous(memory_format=torch.channels_last)
+    calls = _counting(monkeypatch)
+    with torch.no_grad():
+        want = block(x)
+        assert calls == []
+        got = block(x, serving_affines(block))
+    assert calls == [False, False, True]
+    assert (block.downsample is None) == (which == "identity")
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+    assert float((got - want).abs().max()) > 0    # not the module path
+
+
+def test_backbone_serving_route_matches_module_path(f32_72x104,
+                                                    monkeypatch):
+    """The ResNet-50's C2..C5 under ``no_grad`` (the route: 49 passes, the
+    stem and 16 blocks x 3) against its module path (the same forward
+    with gradients on), float32, at the file's tolerances."""
+    _, model, _ = f32_72x104
+    x = model._nchw(maybe_normalize_images(images(2, (72, 104), 17)))
+    calls = _counting(monkeypatch)
+    with torch.enable_grad():
+        want = model.backbone(x)
+    assert calls == []
+    with torch.no_grad():
+        got = model.backbone(x)
+    assert len(calls) == 49 and sum(calls) == 16
+    for g, w in zip(got, want):
+        assert not g.requires_grad
+        torch.testing.assert_close(g, w.detach(), rtol=1e-4, atol=1e-3)
+
+
+def test_serving_route_needs_no_grad_and_running_statistics(monkeypatch):
+    """The route is not taken under autograd, nor with ``train`` BN in
+    training mode (batch statistics); frozen BN in training mode reads its
+    running statistics and takes it."""
+    from efficientdet_tpu_torch.models.resnet import (ResNetFeatures,
+                                                      serving_affines)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(1, 3, 32, 32, generator=g).contiguous(
+        memory_format=torch.channels_last)
+    calls = _counting(monkeypatch)
+    frozen = ResNetFeatures(device="cpu").eval()
+    trained = ResNetFeatures(bn_mode="train", device="cpu").train()
+    with torch.enable_grad():
+        assert serving_affines(frozen) is None
+        frozen(x)
+    with torch.no_grad():
+        assert serving_affines(trained) is None
+        mean = trained.bn1.running_mean.clone()
+        trained(x)
+        assert not torch.equal(trained.bn1.running_mean, mean)
+        assert calls == []
+        frozen.train()
+        assert len(serving_affines(frozen)) == 53
+        frozen(x)
+    assert len(calls) == 49
+
+
+def test_conv_epilogue_plain_rounds_once():
+    """The plain version is the float32 pass rounded to the dtype once:
+    bf16 y and skip, the downsample's affine, ReLU; on the CPU the wrapper
+    runs it, launches nothing and refuses a gradient."""
+    from efficientdet_tpu_torch.kernels.conv_epilogue import (
+        conv_epilogue, conv_epilogue_plain)
+    g = torch.Generator().manual_seed(1)
+    y, k = (torch.randn(2, 16, 3, 5, generator=g).to(torch.bfloat16)
+            .contiguous(memory_format=torch.channels_last) for _ in "yk")
+    s, b, s2, b2 = (torch.randn(16, generator=g) for _ in range(4))
+    f = lambda t, sc, bi: (t.float() * sc[:, None, None]  # noqa: E731
+                           + bi[:, None, None])
+    want = (f(y, s, b) + f(k, s2, b2)).clamp_min(0).to(torch.bfloat16)
+    before = conv_epilogue.launches
+    for got in (conv_epilogue_plain(y, s, b, k, s2, b2),
+                conv_epilogue(y, s, b, k, s2, b2)):
+        assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    ident = conv_epilogue(y, s, b, k)
+    assert torch.equal(ident, (f(y, s, b) + k.float()).relu().to(
+        torch.bfloat16))
+    assert conv_epilogue.launches == before
+    with pytest.raises(RuntimeError, match="no backward"):
+        conv_epilogue(y.float().requires_grad_(), s, b)
+
+
+@pytest.mark.parametrize("shape,itemsize,skip_affine,plan", [
+    ((8, 64, 400, 672), 2, False, (8, 256, 33600)),   # the stem
+    ((8, 256, 200, 336), 2, False, (8, 256, 33600)),  # C2's conv3
+    ((8, 256, 200, 336), 2, True, (8, 256, 2112)),    # ... with downsample
+    ((8, 64, 200, 336), 2, False, (8, 256, 8400)),    # C2's conv1, conv2
+    ((8, 256, 50, 84), 2, False, (8, 256, 525)),      # C4's conv1, conv2
+    ((8, 2048, 25, 42), 2, False, (8, 256, 4200)),    # C5's conv3
+    ((8, 2048, 25, 42), 2, True, (8, 256, 1050)),     # ... with downsample
+    ((1, 2048, 2, 3), 2, False, (8, 256, 1)),         # a small map
+    ((8, 2048, 25, 42), 4, True, (4, 512, 1050)),     # float32, 512 a row
+    ((2, 96, 5, 7), 2, False, (8, 252, 1))])          # 12 vectors a row
+def test_epilogue_plan(shape, itemsize, skip_affine, plan):
+    """The launch geometry: a block a multiple of the row's vectors; two
+    vectors a thread on a map of six or more a thread 132 SMs hold without
+    a skip affine, else a grid of twice what they hold or of eight vectors
+    a thread."""
+    from efficientdet_tpu_torch.kernels.conv_epilogue import epilogue_plan
+    got = epilogue_plan(math.prod(shape), shape[1], itemsize,
+                        skip_affine=skip_affine)
+    assert (got.vec, got.threads, got.blocks) == plan
+    assert got.threads % (shape[1] // got.vec) == 0
+
+
+def test_epilogue_plan_refuses():
+    from efficientdet_tpu_torch.kernels.conv_epilogue import epilogue_plan
+    with pytest.raises(ValueError, match="multiple of 8"):
+        epilogue_plan(2 * 12, 12, 2)
+    with pytest.raises(ValueError, match="at most 4096"):
+        epilogue_plan(8192, 8192, 2)
