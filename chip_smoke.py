@@ -589,10 +589,11 @@ def epilogue_bound(shape, skip, itemsize: int = 2):
 def epilogue_inputs(torch, gen, shape, skip, dtype=None):
     """Kernel G's arguments at ``shape`` (B, C, H, W): y, a conv's output
     (O(1)), in ``dtype`` (default bf16) and channels_last; its BN's f32
-    statistics and affine folded to (scale, bias) as ``fold_bn_affines``
-    folds them; the skip as y, with its own folded BN where ``skip`` is
-    "downsample". Returns (args, bns): the wrapper's arguments, and the
-    (mean, var, weight, bias) of each BN for the module path's ops."""
+    statistics and affine folded to (scale, bias) as
+    ``models/layers.py::fold_bn_affines`` folds them; the skip as y, with
+    its own folded BN where ``skip`` is "downsample". Returns (args, bns):
+    the wrapper's arguments, and the (mean, var, weight, bias) of each BN
+    for the module path's ops."""
     dtype = dtype or torch.bfloat16
     b, c, h, w = shape
     dev = gen.device
@@ -908,7 +909,7 @@ def phase_retinanet(torch, dev):
     bf16, channels_last, 80 classes; weights from the seed with every
     BatchNorm set by the plain reference, ``tests/plain_retinanet.py``),
     first eager, then graphed (``graphed_eval_step``), every counter of
-    ``COUNTED`` set to 0 just before each call and read just after. Per
+    ``kernels.KERNELS`` set to 0 just before each call and read just after. Per
     step, eager and per replay: 49 ``conv_epilogue`` (the stem and 16
     blocks x 3), one ``nms_select``, none of the others. Each replay's
     detections equal the eager step's bit for bit (the same kernels in the
@@ -1055,10 +1056,10 @@ def epilogue_times(torch, dev):
 
 def reset_launches():
     """Set every kernel wrapper's launch count to 0; returns the wrappers."""
-    from efficientdet_tpu_torch.train.graphed import COUNTED
-    for fn in COUNTED:
+    from efficientdet_tpu_torch.kernels import KERNELS
+    for fn in KERNELS:
         fn.launches = 0
-    return COUNTED
+    return KERNELS
 
 
 def launch_counts(counters):

@@ -7,7 +7,7 @@ into one shared library with a plain C interface, at first use, into
 name carries a hash of the sources and flags, so an edited source is rebuilt
 and a stale library is never loaded. The library is bound with ``ctypes``:
 each pointer and the stream go as ``c_void_p``, and each entry point returns
-``cudaGetLastError()`` after its launches.
+``cudaGetLastError()`` after its launches. ``call`` makes every launch.
 """
 
 from __future__ import annotations
@@ -21,6 +21,8 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -120,3 +122,15 @@ def load_library() -> ctypes.CDLL:
                                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     lib.edt_conv_epilogue.restype = ctypes.c_int
     return lib
+
+
+def call(entry: str, device: torch.device, *args) -> None:
+    """The library's entry point ``entry`` on ``args`` and the current
+    stream of ``device``, under ``device``'s guard. Raises
+    ``RuntimeError`` where it returns a CUDA error."""
+    lib = load_library()
+    with torch.cuda.device(device):
+        err = getattr(lib, entry)(*args,
+                                  torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry}: kernel launch failed, CUDA error {err}")

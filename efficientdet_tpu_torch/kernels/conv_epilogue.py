@@ -6,7 +6,7 @@ bottleneck's three) is followed by
     out = relu(y * s + b  [+ skip * s_skip + b_skip  |  + skip])
 
 with y the conv's output, (s, b) its BatchNorm folded to a float32 affine
-(``mbconv_kernel.fold_bn_affines``), and the skip the block's identity
+(``models/layers.py::fold_bn_affines``), and the skip the block's identity
 input, or the downsample conv's raw output with its own BN's affine.
 ``conv_epilogue`` computes that in float32 and writes it once in y's dtype,
 one launch over the map (``csrc/conv_epilogue.cu``, whose header says what
@@ -32,7 +32,7 @@ from typing import Optional
 
 import torch
 
-from . import _build, reject_autograd
+from . import _build, card_kernel
 
 DTYPES = (torch.bfloat16, torch.float32)
 # The kernel's block (csrc/conv_epilogue.cu): a multiple of the 16-byte
@@ -142,17 +142,14 @@ def _check(y, scale, bias, skip, skip_scale, skip_bias):
         raise ValueError(f"{name}: y and the skip must be 16-byte aligned")
 
 
+@card_kernel(conv_epilogue_plain,
+             takes_plain=lambda y: y.device.type != "cuda")
 def conv_epilogue(y, scale, bias, skip=None, skip_scale=None,
                   skip_bias=None) -> torch.Tensor:
     """The pass (arguments and result as ``conv_epilogue_plain``'s): one
-    launch for CUDA tensors, the plain version for others. Raises on inputs
-    the kernel does not take, and on inputs that need a gradient."""
-    given = [t for t in (y, scale, bias, skip, skip_scale, skip_bias)
-             if t is not None]
-    reject_autograd("conv_epilogue", *given)
-    if y.device.type != "cuda":
-        return conv_epilogue_plain(y, scale, bias, skip, skip_scale,
-                                   skip_bias)
+    launch for CUDA tensors, the plain version for all others (CPU, and the
+    ``meta`` tensors of ``pyramid_shapes_for_model``). Raises on inputs the
+    kernel does not take, and on inputs that need a gradient."""
     _check(y, scale, bias, skip, skip_scale, skip_bias)
     plan = epilogue_plan(y.numel(), y.shape[1], y.element_size(),
                          _sms(y.device.index), skip_scale is not None)
@@ -161,22 +158,13 @@ def conv_epilogue(y, scale, bias, skip=None, skip_scale=None,
     def ptr(t: Optional[torch.Tensor]):
         return None if t is None else t.data_ptr()
 
-    lib = _build.load_library()
-    with torch.cuda.device(y.device):
-        err = lib.edt_conv_epilogue(
-            y.data_ptr(), ptr(skip), scale.data_ptr(), bias.data_ptr(),
-            ptr(skip_scale), ptr(skip_bias), out.data_ptr(), y.numel(),
-            y.shape[1], int(y.dtype == torch.bfloat16), plan.threads,
-            plan.blocks, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"conv_epilogue launch failed, CUDA error {err}")
-    conv_epilogue.launches += 1
+    _build.call("edt_conv_epilogue", y.device, y.data_ptr(), ptr(skip),
+                scale.data_ptr(), bias.data_ptr(), ptr(skip_scale),
+                ptr(skip_bias), out.data_ptr(), y.numel(), y.shape[1],
+                int(y.dtype == torch.bfloat16), plan.threads, plan.blocks)
     return out
 
 
 @functools.lru_cache(maxsize=None)
 def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-conv_epilogue.launches = 0

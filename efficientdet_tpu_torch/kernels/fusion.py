@@ -24,10 +24,8 @@ store is coalesced along C, and the 2x gather is pure index arithmetic. A
 fused elementwise pass like this is what Triton's masked block loads
 express fully, so it serves here as well as CUDA C++ would.
 
-The wrappers take the CPU path (plain version) for CPU tensors and launch
-the kernel for CUDA tensors, raising on anything the kernel does not take,
-and on every device on inputs that need a gradient (``reject_autograd``).
-``fuse_topdown.launches`` and ``fuse_bottomup.launches`` count launches.
+The wrappers (``card_kernel``) take the plain version for CPU tensors and
+launch the kernel for CUDA tensors, raising on what the kernel does not take.
 """
 
 from __future__ import annotations
@@ -37,7 +35,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from . import reject_autograd
+from . import card_kernel
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _TILE_ELEMENTS = 2048  # BLOCK_P * BLOCK_C per program
@@ -148,14 +146,10 @@ def _blocks(c: int):
     return max(1, _TILE_ELEMENTS // block_c), block_c
 
 
+@card_kernel(fuse_topdown_plain)
 def fuse_topdown(big: torch.Tensor, small: torch.Tensor,
                  weights: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
     """Top-down fusion node; same contract as ``fuse_topdown_plain``."""
-    reject_autograd("fuse_topdown", big, small, weights)
-    if big.device.type == "cpu":
-        return fuse_topdown_plain(big, small, weights, eps)
-    if big.device.type != "cuda":
-        raise ValueError(f"fuse_topdown: unsupported device {big.device}")
     _check("fuse_topdown", (big, small), weights, 2)
     b, c, h2, w2 = big.shape
     if tuple(small.shape) != (b, c, h2 // 2, w2 // 2) or h2 % 2 or w2 % 2:
@@ -170,18 +164,13 @@ def fuse_topdown(big: torch.Tensor, small: torch.Tensor,
             big, small, weights, out, n_pix, h2, w2, c, float(eps),
             BLOCK_P=block_p, BLOCK_C=block_c, num_warps=4,
             enable_fp_fusion=False)
-    fuse_topdown.launches += 1
     return out
 
 
+@card_kernel(fuse_bottomup_plain)
 def fuse_bottomup(cur: torch.Tensor, lower: torch.Tensor, skip: torch.Tensor,
                   weights: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
     """Bottom-up fusion node; same contract as ``fuse_bottomup_plain``."""
-    reject_autograd("fuse_bottomup", cur, lower, skip, weights)
-    if cur.device.type == "cpu":
-        return fuse_bottomup_plain(cur, lower, skip, weights, eps)
-    if cur.device.type != "cuda":
-        raise ValueError(f"fuse_bottomup: unsupported device {cur.device}")
     _check("fuse_bottomup", (cur, lower, skip), weights, 3)
     b, c, h, w = cur.shape
     if (tuple(lower.shape) != (b, c, 2 * h, 2 * w)
@@ -198,9 +187,4 @@ def fuse_bottomup(cur: torch.Tensor, lower: torch.Tensor, skip: torch.Tensor,
             cur, lower, skip, weights, out, n_pix, h, w, c, float(eps),
             BLOCK_P=block_p, BLOCK_C=block_c, num_warps=4,
             enable_fp_fusion=False)
-    fuse_bottomup.launches += 1
     return out
-
-
-fuse_topdown.launches = 0
-fuse_bottomup.launches = 0

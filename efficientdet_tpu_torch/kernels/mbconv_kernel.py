@@ -25,23 +25,20 @@ Layout is the JAX package's: x (B, H, W, Cin), W_e (Cin, Ce), w_dw (K, K, Ce),
 z (B, Ho, Wo, Ce), Ho = ceil(H / s). A ``channels_last`` NCHW tensor's
 ``permute(0, 2, 3, 1)`` is already a contiguous (B, H, W, C) view.
 
-The wrappers take the plain version for CPU tensors and launch the kernel
-for CUDA tensors, raising on anything the kernel does not take, and on
-every device on inputs that need a gradient (``reject_autograd``).
-``fused_expand_dw.launches`` and ``fused_expand_dw_flat.launches`` count
-kernel launches.
+The wrappers (``card_kernel``) take the plain version for CPU tensors and
+launch the kernel for CUDA tensors, raising on what the kernel does not take.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..ops.padding import same_padding_1d
-from . import _build, reject_autograd
+from . import _build, card_kernel
 
 _DTYPES = (torch.float32, torch.bfloat16)
 # Every MBConv expand of efficientnet-b0..b6: Cin 16..576, multiples of 8;
@@ -70,29 +67,6 @@ _TC_WARPS, _TC_RING, _TC_ROW_BYTES, _TC_PIX_BYTES = 8, 3, 80, 96
 _TC_FIX_CAP = 768
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
-
-
-def fold_bn_affine(gamma: torch.Tensor, beta: torch.Tensor,
-                   mean: torch.Tensor, var: torch.Tensor,
-                   epsilon: float) -> Pair:
-    """Frozen BatchNorm as an affine, ``y = x * scale + bias``, in float32."""
-    scale = gamma.float() * torch.rsqrt(var.float() + epsilon)
-    return scale, beta.float() - mean.float() * scale
-
-
-def fold_bn_affines(bns: Sequence[torch.nn.BatchNorm2d]
-                    ) -> Dict[torch.nn.BatchNorm2d, Pair]:
-    """``fold_bn_affine`` of every frozen BatchNorm layer in ``bns``,
-    {layer: (scale, bias)}: the same float32 operations, as a few
-    multi-tensor launches instead of five launches per layer."""
-    scale = torch._foreach_mul(
-        torch._foreach_rsqrt(torch._foreach_add(
-            [bn.running_var for bn in bns], [bn.eps for bn in bns])),
-        [bn.weight for bn in bns])
-    bias = torch._foreach_sub(
-        [bn.bias for bn in bns],
-        torch._foreach_mul([bn.running_mean for bn in bns], scale))
-    return dict(zip(bns, zip(scale, bias)))
 
 
 # ------------------------------------------------------------ host preparation
@@ -248,8 +222,6 @@ def pack_expand_weights(w: torch.Tensor,
 
 
 def _check(name, x, w_expand, w_dw, vectors, stride):
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {x.device}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"{name}: x must be float32 or bfloat16, got "
                         f"{x.dtype}")
@@ -298,73 +270,53 @@ def _launch(x, w_expand, scale0, bias0, w_dw, scale1, bias1, stride,
                     device=x.device)
     partial = torch.empty((b, th * tw, ce), **f32)
     se = torch.empty((b, ce), **f32)
-    lib = _build.load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if x.dtype == torch.bfloat16:
-            # The kernel takes the contract's raw BN0 vectors and folds them
-            # as ``prepare`` would; W is packed (and, flat, scaled) here.
-            flat = prepare is _prepare_flat
-            w = pack_expand_weights(w_expand, scale0 if flat else None)
-            s0, b0, s1, b1 = (t.float().contiguous()
-                              for t in (scale0, bias0, scale1, bias1))
-            wd = w_dw.float()
-            err = lib.edt_mbconv_fused_bf16(
-                x.data_ptr(), w.data_ptr(), s0.data_ptr(), b0.data_ptr(),
-                wd.data_ptr(), s1.data_ptr(), b1.data_ptr(), z.data_ptr(),
-                partial.data_ptr(), se.data_ptr(), int(flat), *wd.stride(),
-                b, h, wi, cin, plan.cin_pad, ce, k, stride, plan.out_h,
-                plan.out_w, pad_top, pad_left, plan.tile_h, plan.tile_w,
-                plan.row_stride, plan.smem_bytes, stream)
-        else:
-            w, scale, bias = prepare(x, w_expand, scale0, bias0)
-            vectors = [t.float().contiguous() for t in
-                       (scale, bias, w_dw.reshape(k * k, ce), scale1, bias1)]
-            w = w.contiguous()
-            err = lib.edt_mbconv_fused_f32(
-                x.data_ptr(), w.data_ptr(), *(v.data_ptr() for v in vectors),
-                z.data_ptr(), partial.data_ptr(), se.data_ptr(), b, h, wi,
-                cin, ce, k, stride, plan.out_h, plan.out_w, pad_top,
-                pad_left, plan.tile_h, plan.tile_w, stream)
-    if err != 0:
-        raise RuntimeError(f"mbconv kernel launch failed, CUDA error {err}")
+    if x.dtype == torch.bfloat16:
+        # The kernel takes the contract's raw BN0 vectors and folds them as
+        # ``prepare`` would; W is packed (and, flat, scaled) here.
+        flat = prepare is _prepare_flat
+        w = pack_expand_weights(w_expand, scale0 if flat else None)
+        s0, b0, s1, b1 = (t.float().contiguous()
+                          for t in (scale0, bias0, scale1, bias1))
+        wd = w_dw.float()
+        _build.call(
+            "edt_mbconv_fused_bf16", x.device, x.data_ptr(), w.data_ptr(),
+            s0.data_ptr(), b0.data_ptr(), wd.data_ptr(), s1.data_ptr(),
+            b1.data_ptr(), z.data_ptr(), partial.data_ptr(), se.data_ptr(),
+            int(flat), *wd.stride(), b, h, wi, cin, plan.cin_pad, ce, k,
+            stride, plan.out_h, plan.out_w, pad_top, pad_left, plan.tile_h,
+            plan.tile_w, plan.row_stride, plan.smem_bytes)
+    else:
+        w, scale, bias = prepare(x, w_expand, scale0, bias0)
+        vectors = [t.float().contiguous() for t in
+                   (scale, bias, w_dw.reshape(k * k, ce), scale1, bias1)]
+        w = w.contiguous()
+        _build.call(
+            "edt_mbconv_fused_f32", x.device, x.data_ptr(), w.data_ptr(),
+            *(v.data_ptr() for v in vectors), z.data_ptr(),
+            partial.data_ptr(), se.data_ptr(), b, h, wi, cin, ce, k, stride,
+            plan.out_h, plan.out_w, pad_top, pad_left, plan.tile_h,
+            plan.tile_w)
     return z, se
 
 
+@card_kernel(fused_expand_dw_plain)
 def fused_expand_dw(x, w_expand, scale0, bias0, w_dw, scale1, bias1,
                     stride: int = 1) -> Pair:
     """v1 contract (``efficientdet_tpu`` ``fused_expand_dw``): x (B, H, W,
     Cin) f32/bf16, w_expand (Cin, Ce), scale0/bias0/scale1/bias1 (Ce,),
     w_dw (K, K, Ce) -> (z (B, Ho, Wo, Ce) x.dtype, se_mean (B, Ce) f32)."""
-    reject_autograd("fused_expand_dw", x, w_expand, scale0, bias0, w_dw,
-                    scale1, bias1)
-    if x.device.type == "cpu":
-        return fused_expand_dw_plain(x, w_expand, scale0, bias0, w_dw, scale1,
-                                     bias1, stride)
     _check("fused_expand_dw", x, w_expand, w_dw,
            (scale0, bias0, scale1, bias1), stride)
-    out = _launch(x, w_expand, scale0, bias0, w_dw, scale1, bias1, stride,
-                  _prepare_v1)
-    fused_expand_dw.launches += 1
-    return out
+    return _launch(x, w_expand, scale0, bias0, w_dw, scale1, bias1, stride,
+                   _prepare_v1)
 
 
+@card_kernel(fused_expand_dw_flat_plain)
 def fused_expand_dw_flat(x, w_expand, scale0, bias0, w_dw, scale1, bias1,
                          stride: int = 1) -> Pair:
     """flat contract (``efficientdet_tpu`` ``fused_expand_dw_flat``); the
     arguments and results are those of ``fused_expand_dw``."""
-    reject_autograd("fused_expand_dw_flat", x, w_expand, scale0, bias0, w_dw,
-                    scale1, bias1)
-    if x.device.type == "cpu":
-        return fused_expand_dw_flat_plain(x, w_expand, scale0, bias0, w_dw,
-                                          scale1, bias1, stride)
     _check("fused_expand_dw_flat", x, w_expand, w_dw,
            (scale0, bias0, scale1, bias1), stride)
-    out = _launch(x, w_expand, scale0, bias0, w_dw, scale1, bias1, stride,
-                  _prepare_flat)
-    fused_expand_dw_flat.launches += 1
-    return out
-
-
-fused_expand_dw.launches = 0
-fused_expand_dw_flat.launches = 0
+    return _launch(x, w_expand, scale0, bias0, w_dw, scale1, bias1, stride,
+                   _prepare_flat)

@@ -29,7 +29,8 @@ The weights are the modules' own: ``_se_reduce.weight`` (Cse, Ce, 1, 1) and
 its bias, ``_se_expand.weight`` (Ce, Cse, 1, 1) and its bias,
 ``_project_conv.weight`` (Cout, Ce, 1, 1), all float32, read as they are: an
 in-place ``load_state_dict`` reaches the next call, and a CUDA graph's next
-replay. ``scale`` and ``bias`` are BN2 folded (``fold_bn_affines``).
+replay. ``scale`` and ``bias`` are BN2 folded
+(``models/layers.py::fold_bn_affines``).
 
 ``tail_plan`` is the GEMM's launch geometry, plain Python, so the CPU tests
 pin it. ``mbconv_tail.launches`` counts calls that launched the pair.
@@ -42,7 +43,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from . import _build, reject_autograd
+from . import _build, card_kernel
 
 # Every tail of efficientnet-b0..b6: Ce 16..3456, Cout 16..576, both
 # multiples of 8 (16-byte rows of z, the skip and the output).
@@ -183,21 +184,15 @@ def _check(z, s, w_reduce, b_reduce, w_expand, b_expand, w_project, scale,
                          "weight must be 16-byte aligned")
 
 
+@card_kernel(mbconv_tail_plain, takes_plain=lambda z: z.device.type == "cpu"
+             or (z.device.type == "cuda" and z.dtype == torch.float32))
 def mbconv_tail(z, s, w_reduce, b_reduce, w_expand, b_expand, w_project,
                 scale, bias, skip=None) -> torch.Tensor:
     """The block's tail (arguments and result as ``mbconv_tail_plain``'s):
     the plain version for CPU tensors and float32 z, one launch of the gate
     kernel and one of the GEMM for bfloat16 z on the card. Raises on inputs
-    the kernel does not take, and on inputs that need a gradient."""
-    reject_autograd("mbconv_tail", z, s, w_reduce, b_reduce, w_expand,
-                    b_expand, w_project, scale, bias,
-                    *(() if skip is None else (skip,)))
-    if z.device.type == "cpu" or (z.device.type == "cuda"
-                                  and z.dtype == torch.float32):
-        return mbconv_tail_plain(z, s, w_reduce, b_reduce, w_expand,
-                                 b_expand, w_project, scale, bias, skip)
-    if z.device.type != "cuda":
-        raise ValueError(f"mbconv_tail: unsupported device {z.device}")
+    the kernel does not take, on other devices, and on inputs that need a
+    gradient."""
     _check(z, s, w_reduce, b_reduce, w_expand, b_expand, w_project, scale,
            bias, skip)
     b, ho, wo, ce = z.shape
@@ -207,22 +202,13 @@ def mbconv_tail(z, s, w_reduce, b_reduce, w_expand, b_expand, w_project,
     gate = torch.empty((b, ce), **bf16)
     w_bf16 = torch.empty((cout, ce), **bf16)   # W_p rounded, in the step
     out = torch.empty((b, ho, wo, cout), **bf16)
-    lib = _build.load_library()
-    with torch.cuda.device(z.device):
-        err = lib.edt_mbconv_tail_bf16(
-            z.data_ptr(), s.data_ptr(), w_reduce.data_ptr(),
-            b_reduce.data_ptr(), w_expand.data_ptr(), b_expand.data_ptr(),
-            w_project.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            None if skip is None else skip.data_ptr(), gate.data_ptr(),
-            w_bf16.data_ptr(), out.data_ptr(),
-            int(s.dtype == torch.bfloat16), b, ho * wo, ce, cse, cout,
-            plan.kc, plan.mi, plan.nj, plan.m_tiles, plan.n_tiles,
-            int(plan.packed), plan.n_img, plan.smem_bytes,
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"mbconv_tail launch failed, CUDA error {err}")
-    mbconv_tail.launches += 1
+    _build.call(
+        "edt_mbconv_tail_bf16", z.device, z.data_ptr(), s.data_ptr(),
+        w_reduce.data_ptr(), b_reduce.data_ptr(), w_expand.data_ptr(),
+        b_expand.data_ptr(), w_project.data_ptr(), scale.data_ptr(),
+        bias.data_ptr(), None if skip is None else skip.data_ptr(),
+        gate.data_ptr(), w_bf16.data_ptr(), out.data_ptr(),
+        int(s.dtype == torch.bfloat16), b, ho * wo, ce, cse, cout, plan.kc,
+        plan.mi, plan.nj, plan.m_tiles, plan.n_tiles, int(plan.packed),
+        plan.n_img, plan.smem_bytes)
     return out
-
-
-mbconv_tail.launches = 0

@@ -20,7 +20,7 @@ from typing import Tuple
 
 import torch
 
-from . import _build, reject_autograd
+from . import _build, card_kernel
 
 # The order phase sorts K 64-bit keys, padded to a power of two, in shared
 # memory beside the sorted scores and indices: 128 KB at K = 8192.
@@ -64,6 +64,7 @@ def nms_select_plain(scores: torch.Tensor, boxes: torch.Tensor,
     return torch.cat(out_s, dim=1), torch.cat(out_i, dim=1).to(torch.int32)
 
 
+@card_kernel(nms_select_plain)
 def nms_select(scores: torch.Tensor, boxes: torch.Tensor,
                iou_threshold: float, max_detections: int
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -72,14 +73,9 @@ def nms_select(scores: torch.Tensor, boxes: torch.Tensor,
 
     A CPU tensor takes the plain version. A CUDA tensor launches the kernel
     on the current stream, with its (B, 8) int64 cycle counters from
-    ``torch.empty``, or raises on what the kernel does not take. Any
-    device raises on inputs that need a gradient (``reject_autograd``).
-    ``nms_select.launches`` counts kernel launches."""
-    reject_autograd("nms_select", scores, boxes)
-    if scores.device.type == "cpu":
-        return nms_select_plain(scores, boxes, iou_threshold, max_detections)
-    if scores.device.type != "cuda":
-        raise ValueError(f"nms_select: unsupported device {scores.device}")
+    ``torch.empty``, or raises on what the kernel does not take; other
+    devices raise, and so does any device on inputs that need a gradient
+    (``card_kernel``). ``nms_select.launches`` counts kernel launches."""
     if scores.dtype != torch.float32 or boxes.dtype != torch.float32:
         raise TypeError(f"nms_select: need float32, got {scores.dtype}, "
                         f"{boxes.dtype}")
@@ -97,9 +93,7 @@ def nms_select(scores: torch.Tensor, boxes: torch.Tensor,
         raise ValueError(f"nms_select: K={k} (1..{MAX_CANDIDATES}), "
                          f"D={max_detections} (>= 1)")
     cycles = torch.empty((b, 8), dtype=torch.int64, device=scores.device)
-    out = _launch(scores, boxes, iou_threshold, max_detections, cycles)
-    nms_select.launches += 1
-    return out
+    return _launch(scores, boxes, iou_threshold, max_detections, cycles)
 
 
 def _launch(scores, boxes, iou_threshold, max_detections, cycles):
@@ -111,17 +105,8 @@ def _launch(scores, boxes, iou_threshold, max_detections, cycles):
                         device=scores.device)
     out_i = torch.empty((b, max_detections), dtype=torch.int32,
                         device=scores.device)
-    lib = _build.load_library()
-    with torch.cuda.device(scores.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.edt_nms_select(
-            scores.data_ptr(), boxes.data_ptr(), out_s.data_ptr(),
-            out_i.data_ptr(), cycles.data_ptr(), b, k, max_detections,
-            float(iou_threshold), stream)
-    if err != 0:
-        raise RuntimeError(f"nms_select: kernel launch failed, CUDA error "
-                           f"{err}")
+    _build.call("edt_nms_select", scores.device, scores.data_ptr(),
+                boxes.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+                cycles.data_ptr(), b, k, max_detections,
+                float(iou_threshold))
     return out_s, out_i
-
-
-nms_select.launches = 0

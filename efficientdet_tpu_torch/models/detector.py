@@ -54,7 +54,7 @@ class EfficientDet(nn.Module):
 
     ``remat`` recomputes each MBConv block in the backward. The fusion
     kernels (``use_fusion_kernels``) have no backward: asked for gradients,
-    they raise (``kernels.reject_autograd``), so a model that trains keeps
+    they raise (``kernels.card_kernel``), so a model that trains keeps
     them off. Without a ``device`` the model is built on the CUDA card, and
     raises where there is none (``device.default_device``)."""
 

@@ -14,7 +14,8 @@ stay on cuDNN.
 The order of casts follows the JAX function op for op, since it sets the
 bf16 result: each BN runs in float32 on the conv's output and is cast back
 (one ``addcmul`` pass, where eager float32 multiply, add and cast would be
-four passes over the map). Inference only (no autograd), with frozen BN.
+four passes over the map). Inference only (no autograd), with every BN
+reading its running statistics (``layers.serving_affines``).
 
 The kernel pads each expanded block for the size it is given (a stride-2
 block outputs ceil(H / 2)), while the module backbone pads every conv for
@@ -41,10 +42,10 @@ from typing import List, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..kernels.mbconv_kernel import fold_bn_affines, fused_expand_dw_flat
+from ..kernels.mbconv_kernel import fused_expand_dw_flat
 from ..kernels.mbconv_tail import mbconv_tail
 from .efficientnet import EfficientNetFeatures
-from .layers import BatchNorm
+from .layers import serving_affines
 
 
 def _bn(x: torch.Tensor, affine, dtype: torch.dtype) -> torch.Tensor:
@@ -115,12 +116,18 @@ def fused_backbone_forward(backbone: EfficientNetFeatures,
     ``channels_last`` memory and ``dtype``, matching ``backbone`` in eval
     (within bf16 rounding where it also runs bf16). Raises before any
     launch where the fused grid is not the module backbone's
-    (``check_fused_grid``)."""
+    (``check_fused_grid``), and where a BatchNorm would normalize by the
+    batch's statistics (``serving_affines``)."""
     check_fused_grid(backbone, images.shape[1], images.shape[2])
+    affine = serving_affines(backbone)
+    if affine is None:
+        raise ValueError(
+            "the fused backbone folds every BatchNorm's running statistics, "
+            "and a BatchNorm of this backbone would normalize by the "
+            "batch's (bn_mode other than 'frozen', in training mode): serve "
+            "it in eval mode")
     x = images.permute(0, 3, 1, 2).to(dtype).contiguous(
         memory_format=torch.channels_last)
-    affine = fold_bn_affines([m for m in backbone.modules()
-                              if isinstance(m, BatchNorm)])
     x = F.silu(_bn(backbone._conv_stem(x), affine[backbone._bn0],
                    torch.float32)).to(dtype)
 

@@ -1,5 +1,6 @@
 """Shared building blocks: SAME-padded conv, BatchNorm (frozen, train and
 sync modes, with the global batch's statistics under data parallelism),
+its fold to float32 affines for the serving routes (``serving_affines``),
 the weight-standardized conv and the norm registry, swish, drop-connect,
 resizes.
 
@@ -14,7 +15,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -214,6 +215,44 @@ class BatchNorm(nn.BatchNorm2d):
         y = (xf - mean[:, None, None]) * mul[:, None, None] \
             + self.bias[:, None, None]
         return y.to(x.dtype)
+
+
+def fold_bn_affine(gamma: torch.Tensor, beta: torch.Tensor,
+                   mean: torch.Tensor, var: torch.Tensor,
+                   epsilon: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Frozen BatchNorm as an affine, ``y = x * scale + bias``, in float32."""
+    scale = gamma.float() * torch.rsqrt(var.float() + epsilon)
+    return scale, beta.float() - mean.float() * scale
+
+
+def fold_bn_affines(bns: Sequence[nn.BatchNorm2d]
+                    ) -> Dict[nn.BatchNorm2d, Tuple[torch.Tensor,
+                                                    torch.Tensor]]:
+    """``fold_bn_affine`` of every frozen BatchNorm layer in ``bns``,
+    {layer: (scale, bias)}: the same float32 operations, as a few
+    multi-tensor launches instead of five launches per layer."""
+    scale = torch._foreach_mul(
+        torch._foreach_rsqrt(torch._foreach_add(
+            [bn.running_var for bn in bns], [bn.eps for bn in bns])),
+        [bn.weight for bn in bns])
+    bias = torch._foreach_sub(
+        [bn.bias for bn in bns],
+        torch._foreach_mul([bn.running_mean for bn in bns], scale))
+    return dict(zip(bns, zip(scale, bias)))
+
+
+def serving_affines(module: nn.Module
+                    ) -> Optional[Dict[BatchNorm, Tuple[torch.Tensor,
+                                                        torch.Tensor]]]:
+    """{BatchNorm: (scale, bias)} of every BN in ``module``, folded in
+    float32 (``fold_bn_affines``), where the serving routes apply: no
+    gradient is being recorded and every BN reads its running statistics
+    (``frozen`` mode, or eval). Else None."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    if torch.is_grad_enabled() or any(
+            bn.mode != "frozen" and bn.training for bn in bns):
+        return None
+    return fold_bn_affines(bns)
 
 
 def swish(x: torch.Tensor) -> torch.Tensor:

@@ -16,8 +16,8 @@ EfficientNet; a conv casts its weight to the activation dtype.
 
 Serving route: where gradients are off and every BatchNorm reads its
 running statistics (frozen mode, or eval), ``ResNetFeatures`` folds the BNs
-to float32 affines inside the step (``serving_affines``) and follows each
-conv by one ``kernels.conv_epilogue`` pass (kernel G on the card): its BN,
+to float32 affines inside the step (``layers.serving_affines``) and follows
+each conv by one ``kernels.conv_epilogue`` pass (kernel G on the card): its BN,
 the block's skip (the identity, or the downsample conv's raw output with its
 BN's affine) and the ReLU, rounded to the dtype once, where the module path
 rounds after each. 49 passes a ResNet-50 step: the stem and 16 blocks x 3.
@@ -34,25 +34,12 @@ from torch import nn
 
 from ..device import default_device
 from ..kernels.conv_epilogue import conv_epilogue
-from ..kernels.mbconv_kernel import fold_bn_affines
-from .layers import BatchNorm, ConvSame, he_normal_fan_out_
+from .layers import BatchNorm, ConvSame, he_normal_fan_out_, serving_affines
 
 # Bottlenecks per stage (He et al. 2016, Table 1): the depth RETINANET
 # serves.
 DEPTHS = {50: (3, 4, 6, 3)}
 EXPANSION = 4
-
-
-def serving_affines(module: nn.Module) -> Optional[Dict[BatchNorm, Tuple]]:
-    """{BatchNorm: (scale, bias)} of every BN in ``module``, folded in
-    float32 (``fold_bn_affines``), where the serving route applies: no
-    gradient is being recorded and every BN reads its running statistics.
-    Else None, and the module path runs."""
-    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
-    if torch.is_grad_enabled() or any(
-            bn.mode != "frozen" and bn.training for bn in bns):
-        return None
-    return fold_bn_affines(bns)
 
 
 class Bottleneck(nn.Module):

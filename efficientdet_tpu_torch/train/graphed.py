@@ -40,11 +40,11 @@ Spans (``utils/tracing.py``): a call opens ``graph.check``,
 ``graph.clone``; a capture opens ``graph.record`` over ``graph.warmup``,
 ``graph.capture`` and ``graph.verify``.
 
-Launch counts: a capture launches nothing, so the kernel wrappers'
-``.launches`` counters are set back to their values before it, and each
-replay adds to each counter what the capture added to it (the kernels the
-graph launches). The ``WARMUP`` eager steps of a capture count as the
-launches they are.
+Launch counts: a capture launches nothing, so the ``.launches`` counters
+of the kernel wrappers (``kernels.KERNELS``) are set back to their values
+before it, and each replay adds to each counter what the capture added to
+it (the kernels the graph launches). The ``WARMUP`` eager steps of a
+capture count as the launches they are.
 """
 
 from __future__ import annotations
@@ -53,17 +53,12 @@ from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
-from ..kernels import conv_epilogue, fusion, mbconv_kernel, mbconv_tail
-from ..kernels.nms_kernel import nms_select
+from .. import kernels
 from ..ops.nms import Detections
 from ..utils import tracing
 
 # Eager steps run at each new shape before its capture.
 WARMUP = 3
-# Every kernel wrapper whose ``.launches`` a replay credits.
-COUNTED = (nms_select, fusion.fuse_topdown, fusion.fuse_bottomup,
-           mbconv_kernel.fused_expand_dw_flat, mbconv_kernel.fused_expand_dw,
-           mbconv_tail.mbconv_tail, conv_epilogue.conv_epilogue)
 
 
 class Graph(NamedTuple):
@@ -170,18 +165,19 @@ class GraphedEvalStep:
                 want = self.eval_step(static)
         torch.cuda.current_stream(dev).wait_stream(stream)
 
-        before = [fn.launches for fn in COUNTED]
+        counted = kernels.KERNELS
+        before = [fn.launches for fn in counted]
         graph = torch.cuda.CUDAGraph()
         try:
             with tracing.span("graph.capture"):
                 out = _capture(graph, lambda: self.eval_step(static),
                                self.pool, stream)
         finally:
-            added = [fn.launches - n for fn, n in zip(COUNTED, before)]
-            for fn, n in zip(COUNTED, before):
+            added = [fn.launches - n for fn, n in zip(counted, before)]
+            for fn, n in zip(counted, before):
                 fn.launches = n
         entry = Graph(graph, static, Detections(*out),
-                      tuple((fn, n) for fn, n in zip(COUNTED, added) if n),
+                      tuple((fn, n) for fn, n in zip(counted, added) if n),
                       self._storage())
         with tracing.span("graph.verify"):
             _replay(entry)
@@ -213,5 +209,5 @@ def graphed_eval_step(eval_step: Callable[[torch.Tensor], Detections]
     return GraphedEvalStep(eval_step)
 
 
-__all__ = ["COUNTED", "WARMUP", "Graph", "GraphedEvalStep",
+__all__ = ["WARMUP", "Graph", "GraphedEvalStep",
            "graphed_eval_step"]

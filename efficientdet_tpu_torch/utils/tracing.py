@@ -27,7 +27,7 @@ span.
 ``drain()`` hands back the spans closed so far (and forgets them), a
 summary per name (count, wall seconds, self seconds: the wall less the
 walls of the spans directly under it) and the kernel wrappers' own
-``.launches`` counters (``train.graphed.COUNTED``) as ``kernel.<name>``,
+``.launches`` counters (``kernels.KERNELS``) as ``kernel.<name>``,
 read as they stand: launches are counted there and only there.
 
 ``SPANS`` names every span the package opens; with tracing on, any other
@@ -191,12 +191,12 @@ def drain() -> Dict:
     start; 'summary': ``summarize`` of them; 'counters': {'kernel.<name>':
     that wrapper's ``.launches``}}. Forgets the spans."""
     global _closed
-    from ..train import graphed
+    from .. import kernels
     spans, _closed = _closed, []
     spans.sort(key=lambda s: s.start_ns)
     return {"spans": spans, "summary": summarize(spans),
             "counters": {f"kernel.{fn.__name__}": fn.launches
-                         for fn in graphed.COUNTED}}
+                         for fn in kernels.KERNELS}}
 
 
 __all__ = ["SPANS", "Span", "disable", "drain", "enable", "span", "summarize"]

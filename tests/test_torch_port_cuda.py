@@ -16,10 +16,12 @@ import sys
 import pytest
 import torch
 
-from efficientdet_tpu_torch import DetectorConfig, EfficientDet, make_eval_step
+from efficientdet_tpu_torch import (DetectorConfig, EfficientDet, kernels,
+                                    make_eval_step)
 from efficientdet_tpu_torch.kernels import (conv_epilogue, fusion, mbconv_kernel,
                                            mbconv_tail)
 from efficientdet_tpu_torch.kernels.nms_kernel import nms_select
+from kernel_cases import wrapper_calls
 
 MBCONV = {"v1": (mbconv_kernel.fused_expand_dw,
                  mbconv_kernel.fused_expand_dw_plain),
@@ -486,43 +488,11 @@ def _small_batch(device, b=2):
                              uint8_images=True), device)
 
 
-def _wrapper_calls(device):
-    """Each kernel wrapper with small card inputs of its contract."""
-    gen = torch.Generator().manual_seed(0)
-    cl = torch.channels_last
-
-    def r(*s, layout=torch.contiguous_format):
-        return torch.rand(*s, generator=gen).to(device).contiguous(
-            memory_format=layout)
-
-    boxes = torch.cat([torch.rand(1, 10, 2, generator=gen) * 50,
-                       torch.rand(1, 10, 2, generator=gen) * 50 + 60], -1)
-    return {
-        "fuse_topdown": (fusion.fuse_topdown,
-                         (r(1, 8, 4, 4, layout=cl), r(1, 8, 2, 2, layout=cl),
-                          r(2))),
-        "fuse_bottomup": (fusion.fuse_bottomup,
-                          (r(1, 8, 2, 2, layout=cl), r(1, 8, 4, 4, layout=cl),
-                           r(1, 8, 2, 2, layout=cl), r(3))),
-        "fused_expand_dw": (mbconv_kernel.fused_expand_dw,
-                            _mbconv_args(device)),
-        "fused_expand_dw_flat": (mbconv_kernel.fused_expand_dw_flat,
-                                 _mbconv_args(device)),
-        "mbconv_tail": (mbconv_tail.mbconv_tail, _tail_args(device)),
-        "nms_select": (nms_select, (r(1, 10), boxes.to(device), 0.5, 5)),
-        "conv_epilogue": (conv_epilogue.conv_epilogue,
-                          (r(1, 16, 4, 4, layout=cl), r(16), r(16))),
-    }
-
-
-@pytest.mark.parametrize("name", ["fuse_topdown", "fuse_bottomup",
-                                  "fused_expand_dw", "fused_expand_dw_flat",
-                                  "mbconv_tail", "nms_select",
-                                  "conv_epilogue"])
-def test_kernel_wrappers_refuse_gradients(cuda, name):
+@pytest.mark.parametrize("fn", kernels.KERNELS, ids=lambda fn: fn.__name__)
+def test_kernel_wrappers_refuse_gradients(cuda, fn):
     """Asked for a gradient, a wrapper raises before it launches (the
     kernel has no backward); without grad mode it launches once."""
-    fn, args = _wrapper_calls(cuda)[name]
+    _, args = wrapper_calls(cuda)[fn.__name__]
     args[0].requires_grad_()
     before = fn.launches
     with pytest.raises(RuntimeError, match="no backward"):

@@ -38,6 +38,7 @@ import jax.numpy as jnp
 from efficientdet_tpu.train import make_eval_step as jax_make_eval_step
 from efficientdet_tpu_torch import (DetectorConfig, EfficientDet,
                                     create_train_state, make_eval_step)
+from efficientdet_tpu_torch import kernels
 from efficientdet_tpu_torch.kernels import fusion
 from efficientdet_tpu_torch.kernels.nms_kernel import nms_select
 from efficientdet_tpu_torch.train import graphed, graphed_eval_step
@@ -102,10 +103,10 @@ class FakeGraph:
         FakeGraph.made.append(self)
 
     def replay(self):
-        counts = [fn.launches for fn in graphed.COUNTED]
+        counts = [fn.launches for fn in kernels.KERNELS]
         for static, new in zip(self.out, self.fn()):
             static.copy_(new)
-        for fn, n in zip(graphed.COUNTED, counts):
+        for fn, n in zip(kernels.KERNELS, counts):
             fn.launches = n
         self.replays += 1
 

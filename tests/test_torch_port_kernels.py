@@ -20,8 +20,7 @@ from efficientdet_tpu.kernels.fusion import (fuse_bottomup_pallas,
 from efficientdet_tpu.kernels.nms_kernel import nms_select_pallas
 from efficientdet_tpu.ops.nms import select_and_suppress
 from efficientdet_tpu_torch.kernels import fusion
-from efficientdet_tpu_torch.kernels.nms_kernel import (nms_select,
-                                                       nms_select_plain)
+from efficientdet_tpu_torch.kernels.nms_kernel import nms_select_plain
 
 
 # ------------------------------------------------------------------- NMS (A)
@@ -63,23 +62,6 @@ def test_nms_plain_matches_pallas_and_scan(b, k, d, ties):
     np.testing.assert_array_equal(np.where(valid, got_s.numpy(), -1),
                                   np.asarray(ref.scores))
     assert not valid[-1].any()  # the all-padding row
-
-
-def test_nms_wrapper_on_cpu_is_plain_and_not_counted():
-    rng = np.random.RandomState(0)
-    scores, boxes = map(torch.from_numpy, nms_inputs(rng, 2, 50))
-    before = nms_select.launches
-    got = nms_select(scores, boxes, 0.5, 10)
-    want = nms_select_plain(scores, boxes, 0.5, 10)
-    assert nms_select.launches == before
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
-
-
-def test_nms_wrapper_rejects_other_devices():
-    with pytest.raises(ValueError, match="unsupported device"):
-        nms_select(torch.zeros(1, 4, device="meta"),
-                   torch.zeros(1, 4, 4, device="meta"), 0.5, 2)
 
 
 # -------------------------------------------------------- BiFPN fusion (B, C)
@@ -138,12 +120,3 @@ def test_fuse_plain_casts_back_to_input_dtype():
     up = small.float().repeat_interleave(2, 2).repeat_interleave(2, 3)
     want = ((0.3 * big.float() + 0.7 * up) / (1.0 + 1e-4)).bfloat16()
     torch.testing.assert_close(got, want, rtol=0, atol=1e-2)
-
-
-def test_fuse_wrappers_reject_other_devices():
-    m = torch.zeros(1, 4, 4, 4, device="meta")
-    s = torch.zeros(1, 4, 2, 2, device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        fusion.fuse_topdown(m, s, torch.zeros(2, device="meta"))
-    with pytest.raises(ValueError, match="unsupported device"):
-        fusion.fuse_bottomup(s, m, s, torch.zeros(3, device="meta"))

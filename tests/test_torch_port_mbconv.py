@@ -26,7 +26,8 @@ from efficientdet_tpu_torch.kernels import mbconv_kernel as mk
 from efficientdet_tpu_torch.kernels import mbconv_tail as mt
 from efficientdet_tpu_torch.models.efficientnet import EfficientNetFeatures
 from efficientdet_tpu_torch.models.fused_serving import _bn
-from efficientdet_tpu_torch.models.layers import BatchNorm
+from efficientdet_tpu_torch.models.layers import (BatchNorm, fold_bn_affine,
+                                                  fold_bn_affines)
 from test_torch_port_slice import (CFG, SIZE, _nhwc, _port,  # noqa: F401
                                    jax_model, one_thread)
 
@@ -69,7 +70,7 @@ def test_fold_bn_affine_matches_jax():
     var = rng.rand(32).astype(np.float32) + 0.1
     want = jax_mbconv.fold_bn_affine(*map(jnp.asarray, (gamma, beta, mean,
                                                         var)), 1e-3)
-    got = mk.fold_bn_affine(*map(torch.from_numpy, (gamma, beta, mean, var)),
+    got = fold_bn_affine(*map(torch.from_numpy, (gamma, beta, mean, var)),
                             1e-3)
     for g, w in zip(got, want):
         assert g.dtype == torch.float32
@@ -82,10 +83,10 @@ def test_fold_bn_affines_equals_fold_bn_affine(jax_model):
     ``fold_bn_affine`` gives layer by layer."""
     port = _port(jax_model[1])
     bns = [m for m in port.backbone.modules() if isinstance(m, BatchNorm)]
-    folded = mk.fold_bn_affines(bns)
+    folded = fold_bn_affines(bns)
     assert len(folded) == len(bns) == 1 + 16 * 3 - 1  # stem, 3 per block
     for bn in bns:
-        want = mk.fold_bn_affine(bn.weight, bn.bias, bn.running_mean,
+        want = fold_bn_affine(bn.weight, bn.bias, bn.running_mean,
                                  bn.running_var, bn.eps)
         for got, w in zip(folded[bn], want):
             assert torch.equal(got, w)
@@ -151,25 +152,6 @@ def test_flat_plain_matches_pallas_bf16(h, w, cin, ce, k, s):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("impl", ["v1", "flat"])
-def test_wrapper_on_cpu_is_plain_and_not_counted(impl):
-    _, plain, wrapper = PAIRS[impl]
-    args = [torch.from_numpy(a) for a in _inputs(12, 10, 16, 96, 5)]
-    before = wrapper.launches
-    got = wrapper(*args, stride=2)
-    want = plain(*args, stride=2)
-    assert wrapper.launches == before
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
-
-
-@pytest.mark.parametrize("impl", ["v1", "flat"])
-def test_wrapper_rejects_other_devices(impl):
-    args = [torch.from_numpy(a).to("meta") for a in _inputs(8, 8, 16, 96, 3)]
-    with pytest.raises(ValueError, match="unsupported device"):
-        PAIRS[impl][2](*args, stride=1)
-
-
 def test_fused_backbone_matches_jax(jax_model):
     """All 7 stages at 128 px, B=1, float32, within 2e-4 (the tolerance of
     tests/test_kernels.py's fused-backbone test); the stages come out in
@@ -195,6 +177,20 @@ def test_fused_backbone_rejects_odd_sizes(jax_model):
     with pytest.raises(ValueError, match="even input sizes"):
         fused_backbone_forward(port.backbone, torch.zeros(1, 130, 129, 3),
                                torch.float32)
+
+
+def test_fused_backbone_refuses_batch_statistics():
+    """The fused backbone folds every BN's running statistics, so a backbone
+    whose ``train`` BN would normalize by the batch's (training mode) is
+    refused; in eval mode the same backbone is served."""
+    backbone = EfficientNetFeatures("efficientnet-b0", bn_mode="train",
+                                    device="cpu")
+    backbone.reset_parameters(torch.Generator().manual_seed(0))
+    images = torch.zeros(1, SIZE, SIZE, 3)
+    with pytest.raises(ValueError, match="normalize by the batch's"):
+        fused_backbone_forward(backbone.train(), images, torch.float32)
+    assert len(fused_backbone_forward(backbone.eval(), images,
+                                      torch.float32)) == 7
 
 
 def test_fused_eval_step_matches_jax(jax_model):
@@ -570,7 +566,7 @@ def test_tail_plain_is_the_module_sequence(d0_backbone, index, dtype):
     convs with their weights cast, the gate multiply, the project conv, BN2
     as one addcmul and the skip's add."""
     block = d0_backbone._blocks[index]
-    affine = mk.fold_bn_affines([block._bn2])
+    affine = fold_bn_affines([block._bn2])
     _, ce, _, cout, _ = D0_TAILS[index]
     gen = torch.Generator().manual_seed(index)
     x = F.silu(torch.randn(2, ce, 4, 4, generator=gen)).to(dtype).contiguous(
@@ -598,7 +594,7 @@ def _module_fused_backbone(backbone, images, dtype):
     plain version, then each block's tail as the module path's ops."""
     x = images.permute(0, 3, 1, 2).to(dtype).contiguous(
         memory_format=torch.channels_last)
-    affine = mk.fold_bn_affines([m for m in backbone.modules()
+    affine = fold_bn_affines([m for m in backbone.modules()
                                  if isinstance(m, BatchNorm)])
     x = F.silu(_bn(backbone._conv_stem(x), affine[backbone._bn0],
                    torch.float32)).to(dtype)
@@ -648,25 +644,3 @@ def test_fused_backbone_runs_one_tail_a_block(d0_backbone, dtype,
     assert len(calls) == 16
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-
-
-def test_tail_wrapper_on_cpu_is_plain_and_not_counted(d0_backbone):
-    block = d0_backbone._blocks[2]
-    gen = torch.Generator().manual_seed(1)
-    z = torch.rand(2, 4, 4, 144, generator=gen).bfloat16()
-    args = (z, z.float().mean(dim=(1, 2)), block._se_reduce.weight,
-            block._se_reduce.bias, block._se_expand.weight,
-            block._se_expand.bias, block._project_conv.weight,
-            torch.rand(24, generator=gen), torch.rand(24, generator=gen),
-            torch.rand(2, 4, 4, 24, generator=gen).bfloat16())
-    before = mt.mbconv_tail.launches
-    with torch.no_grad():
-        got = mt.mbconv_tail(*args)
-        want = mt.mbconv_tail_plain(*args)
-    assert mt.mbconv_tail.launches == before
-    assert torch.equal(got, want)
-    with torch.no_grad(), pytest.raises(ValueError,
-                                        match="unsupported device"):
-        mt.mbconv_tail(*(a.to("meta") for a in args))
-    with pytest.raises(RuntimeError, match="no backward"):
-        mt.mbconv_tail(*args)   # the weights are parameters

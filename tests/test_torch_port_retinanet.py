@@ -315,7 +315,7 @@ def test_serving_route_matches_module_path(which, monkeypatch):
     version: BN, skip and ReLU rounded once) against its module path (BN,
     ReLU, the add, the ReLU), float32, at the file's tolerances; three
     passes, the last with the skip."""
-    from efficientdet_tpu_torch.models.resnet import serving_affines
+    from efficientdet_tpu_torch.models.layers import serving_affines
     block = _blocks()[which == "identity"]
     cin = block.conv1.weight.shape[1]
     x = torch.randn(2, cin, 20, 28, generator=torch.Generator().manual_seed(
@@ -354,8 +354,8 @@ def test_serving_route_needs_no_grad_and_running_statistics(monkeypatch):
     """The route is not taken under autograd, nor with ``train`` BN in
     training mode (batch statistics); frozen BN in training mode reads its
     running statistics and takes it."""
-    from efficientdet_tpu_torch.models.resnet import (ResNetFeatures,
-                                                      serving_affines)
+    from efficientdet_tpu_torch.models.layers import serving_affines
+    from efficientdet_tpu_torch.models.resnet import ResNetFeatures
     g = torch.Generator().manual_seed(0)
     x = torch.randn(1, 3, 32, 32, generator=g).contiguous(
         memory_format=torch.channels_last)

@@ -28,9 +28,9 @@ import torch
 
 from efficientdet_tpu_torch import (DetectorConfig, EfficientDet,
                                     create_train_state, make_train_step)
+from efficientdet_tpu_torch import kernels
 from efficientdet_tpu_torch.kernels import fusion
 from efficientdet_tpu_torch.kernels.nms_kernel import nms_select
-from efficientdet_tpu_torch.train import graphed
 from efficientdet_tpu_torch.utils import checkpoint as ckpt
 from efficientdet_tpu_torch.utils import tracing
 
@@ -207,9 +207,10 @@ def test_threads_keep_their_own_stacks():
 
 
 def test_counters_are_the_wrappers_own(monkeypatch):
-    """``drain`` reads every ``.launches`` of ``graphed.COUNTED`` as it
-    stands; a span adds no launch."""
-    for fn in graphed.COUNTED:
+    """``drain`` reads every ``.launches`` of ``kernels.KERNELS`` as it
+    stands, all seven wrappers whether or not one launched; a span adds no
+    launch."""
+    for fn in kernels.KERNELS:
         monkeypatch.setattr(fn, "launches", 0)
     nms_select.launches += 2
     fusion.fuse_topdown.launches += 5
@@ -218,7 +219,10 @@ def test_counters_are_the_wrappers_own(monkeypatch):
         pass
     counters = tracing.drain()["counters"]
     assert counters == {f"kernel.{fn.__name__}": fn.launches
-                        for fn in graphed.COUNTED}
+                        for fn in kernels.KERNELS}
+    assert set(counters) == {f"kernel.{name}" for name in (
+        "nms_select", "fuse_topdown", "fuse_bottomup", "fused_expand_dw",
+        "fused_expand_dw_flat", "mbconv_tail", "conv_epilogue")}
     assert counters["kernel.nms_select"] == 2
     assert counters["kernel.fuse_topdown"] == 5
     assert sum(counters.values()) == 7
@@ -343,6 +347,6 @@ def test_perf_md_names_every_span():
     with open(os.path.join(ROOT, "PERF.md")) as f:
         text = f.read()
     missing = [n for n in tracing.SPANS if f"`{n}`" not in text]
-    missing += [f"kernel.{fn.__name__}" for fn in graphed.COUNTED
+    missing += [f"kernel.{fn.__name__}" for fn in kernels.KERNELS
                 if f"`kernel.{fn.__name__}`" not in text]
     assert not missing

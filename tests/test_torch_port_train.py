@@ -36,12 +36,13 @@ from efficientdet_tpu_torch import (EfficientDet, OptimizerConfig,
                                     PlateauScheduler, create_train_state,
                                     make_eval_step, make_loss_step,
                                     make_train_step, to_device)
-from efficientdet_tpu_torch.kernels import fusion, mbconv_kernel, nms_kernel
+from efficientdet_tpu_torch import kernels
 from efficientdet_tpu_torch.models import efficientnet as pt_efficientnet
 from efficientdet_tpu_torch.train import (TrainState, get_learning_rate,
                                           make_optimizer, set_learning_rate)
 from efficientdet_tpu_torch.utils.weights import (load_jax_variables,
                                                   to_jax_variables)
+from kernel_cases import wrapper_calls
 from test_torch_port_slice import CFG, SIZE, jax_model  # noqa: F401
 
 TOTAL_BLOCKS = 16  # efficientnet-b0
@@ -398,41 +399,18 @@ def test_remat_gives_the_same_gradients(jax_model):
 
 
 # ------------------------------------------------------ kernels and autograd
-def _wrapper_calls():
-    """Each kernel wrapper with small CPU inputs of its contract."""
-    gen = torch.Generator().manual_seed(0)
-    r = lambda *s: torch.rand(*s, generator=gen)
-    cl = torch.channels_last
-    mb = lambda: (r(1, 6, 6, 8), r(8, 48), r(48), r(48), r(3, 3, 48), r(48),
-                  r(48))
-    return {
-        "fuse_topdown": (fusion.fuse_topdown,
-                         (r(1, 8, 4, 4).contiguous(memory_format=cl),
-                          r(1, 8, 2, 2).contiguous(memory_format=cl),
-                          torch.tensor([0.4, 0.6]))),
-        "fuse_bottomup": (fusion.fuse_bottomup,
-                          (r(1, 8, 2, 2).contiguous(memory_format=cl),
-                           r(1, 8, 4, 4).contiguous(memory_format=cl),
-                           r(1, 8, 2, 2).contiguous(memory_format=cl),
-                           torch.tensor([0.2, 0.3, 0.5]))),
-        "fused_expand_dw": (mbconv_kernel.fused_expand_dw, mb()),
-        "fused_expand_dw_flat": (mbconv_kernel.fused_expand_dw_flat, mb()),
-        "nms_select": (nms_kernel.nms_select,
-                       (r(1, 10), torch.cat([r(1, 10, 2) * 50,
-                                             r(1, 10, 2) * 50 + 60], -1),
-                        0.5, 5)),
-    }
-
-
-@pytest.mark.parametrize("name", ["fuse_topdown", "fuse_bottomup",
-                                  "fused_expand_dw", "fused_expand_dw_flat",
-                                  "nms_select"])
-def test_kernel_wrappers_refuse_gradients(name):
-    """A wrapper asked for a gradient raises on every device (the kernels
-    have no backward); without grad mode the same call runs."""
-    fn, args = _wrapper_calls()[name]
-    args = [a.requires_grad_() if isinstance(a, torch.Tensor)
-            and a.is_floating_point() and i == 0 else a
+@pytest.mark.parametrize(
+    "fn,which", [(fn, w) for w in (0, -1) for fn in kernels.KERNELS],
+    ids=[fn.__name__ + ("" if w == 0 else "-last") for w in (0, -1)
+         for fn in kernels.KERNELS])
+def test_kernel_wrappers_refuse_gradients(fn, which):
+    """A wrapper asked for a gradient, through its first or its last tensor
+    argument, raises on every device (the kernels have no backward);
+    without grad mode the same call runs."""
+    _, args = wrapper_calls("cpu")[fn.__name__]
+    tensors = [i for i, a in enumerate(args) if isinstance(a, torch.Tensor)
+               and a.is_floating_point()]
+    args = [a.requires_grad_() if i == tensors[which] else a
             for i, a in enumerate(args)]
     with pytest.raises(RuntimeError, match="no backward"):
         fn(*args)
