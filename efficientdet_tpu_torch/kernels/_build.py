@@ -119,7 +119,7 @@ def load_library() -> ctypes.CDLL:
                                          + [ctypes.c_void_p])
     lib.edt_mbconv_tail_bf16.restype = ctypes.c_int
     lib.edt_conv_epilogue.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int64]
-                                      + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                                      + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.edt_conv_epilogue.restype = ctypes.c_int
     return lib
 

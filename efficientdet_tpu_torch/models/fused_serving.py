@@ -8,14 +8,17 @@ BN -> swish -> depthwise -> BN -> swish segment as one launch of
 never reaches device memory, and each block's tail (squeeze-excite gate,
 project conv, BN and skip) as one pair of launches of
 ``kernels/mbconv_tail.py::mbconv_tail``, which reads the expanded tensor
-once. The stem and the depthwise of the one block without an expansion
-stay on cuDNN.
+once. The stem's conv and the depthwise conv of the one block without an
+expansion stay on cuDNN, each followed by its BN and swish as one pass of
+``kernels/conv_epilogue.py::conv_epilogue`` (kernel G), as the module
+backbone's serving route runs them.
 
 The order of casts follows the JAX function op for op, since it sets the
-bf16 result: each BN runs in float32 on the conv's output and is cast back
-(one ``addcmul`` pass, where eager float32 multiply, add and cast would be
-four passes over the map). Inference only (no autograd), with every BN
-reading its running statistics (``layers.serving_affines``).
+bf16 result: each BN and its swish run in float32 on the conv's output,
+which is cast back once (one pass of kernel G, where eager float32 BN,
+swish and cast would be three passes through a float32 map). Inference
+only (no autograd), with every BN reading its running statistics
+(``layers.serving_affines``).
 
 The kernel pads each expanded block for the size it is given (a stride-2
 block outputs ceil(H / 2)), while the module backbone pads every conv for
@@ -40,20 +43,12 @@ from __future__ import annotations
 from typing import List, Tuple
 
 import torch
-import torch.nn.functional as F
 
+from ..kernels.conv_epilogue import conv_epilogue
 from ..kernels.mbconv_kernel import fused_expand_dw_flat
 from ..kernels.mbconv_tail import mbconv_tail
 from .efficientnet import EfficientNetFeatures
 from .layers import serving_affines
-
-
-def _bn(x: torch.Tensor, affine, dtype: torch.dtype) -> torch.Tensor:
-    """Frozen BN of an NCHW conv output: ``x * scale + bias`` computed in
-    float32 and written in ``dtype``, in one pass over x."""
-    scale, bias = affine
-    return torch.addcmul(bias[:, None, None], x, scale[:, None, None],
-                         out=torch.empty_like(x, dtype=dtype))
 
 
 def _conv_out(n: int, conv) -> int:
@@ -117,19 +112,20 @@ def fused_backbone_forward(backbone: EfficientNetFeatures,
     (within bf16 rounding where it also runs bf16). Raises before any
     launch where the fused grid is not the module backbone's
     (``check_fused_grid``), and where a BatchNorm would normalize by the
-    batch's statistics (``serving_affines``)."""
+    batch's statistics or carries a forward hook (``serving_affines``)."""
     check_fused_grid(backbone, images.shape[1], images.shape[2])
     affine = serving_affines(backbone)
     if affine is None:
         raise ValueError(
             "the fused backbone folds every BatchNorm's running statistics, "
             "and a BatchNorm of this backbone would normalize by the "
-            "batch's (bn_mode other than 'frozen', in training mode): serve "
-            "it in eval mode")
+            "batch's (bn_mode other than 'frozen', in training mode; serve "
+            "it in eval mode) or carries a forward hook, which the fold "
+            "would never call")
     x = images.permute(0, 3, 1, 2).to(dtype).contiguous(
         memory_format=torch.channels_last)
-    x = F.silu(_bn(backbone._conv_stem(x), affine[backbone._bn0],
-                   torch.float32)).to(dtype)
+    x = conv_epilogue(backbone._conv_stem(x), *affine[backbone._bn0],
+                      act="swish")
 
     features = []
     blocks = iter(backbone._blocks)
@@ -145,8 +141,8 @@ def fused_backbone_forward(backbone: EfficientNetFeatures,
                     inputs, we, *affine[block._bn0], wd, *affine[block._bn1],
                     stride=ba.stride)
             else:
-                x = F.silu(_bn(block._depthwise_conv(x), affine[block._bn1],
-                               torch.float32)).to(dtype)
+                x = conv_epilogue(block._depthwise_conv(x),
+                                  *affine[block._bn1], act="swish")
                 z, s = x.permute(0, 2, 3, 1), x.mean(dim=(2, 3))
             x = mbconv_tail(
                 z, s, block._se_reduce.weight, block._se_reduce.bias,

@@ -246,11 +246,15 @@ def serving_affines(module: nn.Module
                                                         torch.Tensor]]]:
     """{BatchNorm: (scale, bias)} of every BN in ``module``, folded in
     float32 (``fold_bn_affines``), where the serving routes apply: no
-    gradient is being recorded and every BN reads its running statistics
-    (``frozen`` mode, or eval). Else None."""
+    gradient is being recorded, every BN reads its running statistics
+    (``frozen`` mode, or eval) and none carries a forward hook (a hook
+    watches the BN's own call, which a route does not make:
+    ``utils/seeded.py::calibrate_batchnorm`` sets statistics so). Else
+    None."""
     bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
     if torch.is_grad_enabled() or any(
-            bn.mode != "frozen" and bn.training for bn in bns):
+            (bn.mode != "frozen" and bn.training) or bn._forward_pre_hooks
+            or bn._forward_hooks for bn in bns):
         return None
     return fold_bn_affines(bns)
 

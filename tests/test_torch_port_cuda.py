@@ -401,15 +401,35 @@ def test_mbconv_tail_rejects_bad_input(cuda):
 
 # The distinct passes of kernel G in the RetinaNet cell's serving step
 # (``chip_smoke.epilogue_shapes``: the stem, C2..C5 without a skip, with the
-# identity and with the downsample's output and affine).
+# identity and with the downsample's output and affine; ReLU), and in the
+# d7_serve_b4 cell's (``chip_smoke.d7_epilogue_shapes``: B6 at 1636 px,
+# B = 4; swish after the stem, expand and depthwise convs, none after the
+# project convs, with the identity or without).
 EPILOGUE_PASSES = 16
+D7_EPILOGUE_PASSES = 29
 
 
-def _epilogue_pass(case):
-    from chip_smoke import epilogue_shapes
-    passes = list(epilogue_shapes())
-    assert len(passes) == EPILOGUE_PASSES
+def _epilogue_pass(case, shapes="epilogue_shapes", n=EPILOGUE_PASSES):
+    import chip_smoke
+    passes = list(getattr(chip_smoke, shapes)())
+    assert len(passes) == n
     return passes[case]
+
+
+def _check_epilogue_pass(cuda, seed, shape, skip, act, dtype):
+    """Kernel G once at a pass: one launch, the output in y's strides,
+    equal to the plain version bit for bit."""
+    from chip_smoke import epilogue_inputs
+    args, _ = epilogue_inputs(
+        torch, torch.Generator(device=cuda).manual_seed(seed), shape, skip,
+        dtype)
+    before = conv_epilogue.conv_epilogue.launches
+    got = conv_epilogue.conv_epilogue(*args, act=act)
+    torch.cuda.synchronize()
+    assert conv_epilogue.conv_epilogue.launches == before + 1
+    want = conv_epilogue.conv_epilogue_plain(*args, act=act)
+    assert got.dtype == dtype and got.stride() == args[0].stride()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("case", range(EPILOGUE_PASSES))
@@ -418,17 +438,23 @@ def test_conv_epilogue_matches_plain(cuda, case):
     1344, B = 8, bf16): one launch, the output in y's strides, equal to the
     plain version bit for bit (both round each multiply and add on its own;
     the kernel uses no fused multiply-add)."""
-    from chip_smoke import epilogue_inputs
-    shape, skip = _epilogue_pass(case)
-    args, _ = epilogue_inputs(
-        torch, torch.Generator(device=cuda).manual_seed(case), shape, skip)
-    before = conv_epilogue.conv_epilogue.launches
-    got = conv_epilogue.conv_epilogue(*args)
-    torch.cuda.synchronize()
-    assert conv_epilogue.conv_epilogue.launches == before + 1
-    want = conv_epilogue.conv_epilogue_plain(*args)
-    assert got.dtype == torch.bfloat16 and got.stride() == args[0].stride()
-    assert torch.equal(got, want)
+    shape, skip, act = _epilogue_pass(case)
+    assert act == "relu"
+    _check_epilogue_pass(cuda, case, shape, skip, act, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", range(D7_EPILOGUE_PASSES))
+def test_conv_epilogue_d7_matches_plain(cuda, case, dtype):
+    """Kernel G at each distinct pass of the d7_serve_b4 cell's step (B6
+    at 1636 px, B = 4), bf16 and float32 (whose 2064- and 3456-channel
+    rows are longer than a block): equal to the plain version bit for bit;
+    its swish is ATen's silu in float32, the same expf and division."""
+    shape, skip, act = _epilogue_pass(case, "d7_epilogue_shapes",
+                                      D7_EPILOGUE_PASSES)
+    assert act in ("swish", "none")
+    _check_epilogue_pass(cuda, case, shape, skip, act, dtype)
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.parametrize("skip", [None, "identity", "downsample"])
@@ -447,6 +473,26 @@ def test_conv_epilogue_other_shapes(cuda, dtype, shape, skip):
     want = conv_epilogue.conv_epilogue_plain(*args)
     assert got.dtype == dtype and torch.equal(got, want)
     assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("act", ["relu", "swish", "none"])
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.float32, (2, 3456, 5, 7)), (torch.float32, (1, 2064, 3, 3)),
+    (torch.bfloat16, (2, 56, 9, 11)), (torch.bfloat16, (1, 3456, 1, 3))])
+def test_conv_epilogue_acts_other_shapes(cuda, act, dtype, shape):
+    """Each act at rows longer than a block (float32 at B6's 3456 and 2064
+    channels: 864 and 516 vectors), at 7 vectors a row (B6's stem) and at a
+    map of 3 pixels: equal to the plain version bit for bit, with the
+    identity skip and without, twice."""
+    from chip_smoke import epilogue_inputs
+    for skip in (None, "identity"):
+        args, _ = epilogue_inputs(torch, torch.Generator(
+            device=cuda).manual_seed(shape[1]), shape, skip, dtype)
+        got = conv_epilogue.conv_epilogue(*args, act=act)
+        again = conv_epilogue.conv_epilogue(*args, act=act)
+        want = conv_epilogue.conv_epilogue_plain(*args, act=act)
+        assert got.dtype == dtype and torch.equal(got, want)
+        assert torch.equal(got, again)
 
 
 def test_conv_epilogue_rejects_bad_input(cuda):
@@ -477,6 +523,8 @@ def test_conv_epilogue_rejects_bad_input(cuda):
     odd = epilogue_inputs(torch, gen, (2, 12, 4, 6), None)[0]
     with pytest.raises(ValueError, match="multiple of 8"):
         fn(*odd)
+    with pytest.raises(ValueError, match="act 'gelu'"):
+        fn(y, s, b, act="gelu")
     assert fn.launches == before
 
 
@@ -703,7 +751,9 @@ def test_retinanet_bf16_graphed_step_launches_kernel_g(cuda):
     plain reference: the eager step launches kernel G 49 times (the stem
     and 16 blocks x 3), a graphed call replays 49 and its detections equal
     the eager step's; ``tracing.drain`` reads the counter as
-    ``kernel.conv_epilogue``; a D0 graphed step launches none."""
+    ``kernel.conv_epilogue``; a D0 graphed step on the module backbone
+    launches 48 a step (the stem, 15 expanded blocks x 3, 1 unexpanded x
+    2), in its eager steps and per replay."""
     import plain_retinanet as plain
     from efficientdet_tpu_torch import graphed_eval_step
     from efficientdet_tpu_torch.train import graphed
@@ -747,7 +797,7 @@ def test_retinanet_bf16_graphed_step_launches_kernel_g(cuda):
     for _ in range(2):
         d0_step(batches[0][:, :128, :128].contiguous())
     torch.cuda.synchronize()
-    assert fn.launches == before
+    assert fn.launches == before + 48 * (graphed.WARMUP + 2)
 
 
 def test_graph_serves_eval_mode_after_a_train_step(cuda):

@@ -24,8 +24,8 @@ from efficientdet_tpu.train import make_eval_step as jax_make_eval_step
 from efficientdet_tpu_torch import fused_backbone_forward, make_eval_step
 from efficientdet_tpu_torch.kernels import mbconv_kernel as mk
 from efficientdet_tpu_torch.kernels import mbconv_tail as mt
+from efficientdet_tpu_torch.kernels.conv_epilogue import conv_epilogue_plain
 from efficientdet_tpu_torch.models.efficientnet import EfficientNetFeatures
-from efficientdet_tpu_torch.models.fused_serving import _bn
 from efficientdet_tpu_torch.models.layers import (BatchNorm, fold_bn_affine,
                                                   fold_bn_affines)
 from test_torch_port_slice import (CFG, SIZE, _nhwc, _port,  # noqa: F401
@@ -546,6 +546,15 @@ def d0_backbone():
     return backbone.eval().to(memory_format=torch.channels_last)
 
 
+def _bn(x, affine, dtype):
+    """Frozen BN of an NCHW conv output as ``fused_backbone_forward`` ran
+    it before kernels F and G: ``x * scale + bias`` in float32, one
+    ``addcmul`` written in ``dtype``."""
+    scale, bias = affine
+    return torch.addcmul(bias[:, None, None], x, scale[:, None, None],
+                         out=torch.empty_like(x, dtype=dtype))
+
+
 def _module_tail(block, affine, x, s, inputs, dtype):
     """The tail as ``fused_backbone_forward`` ran it before kernel F, op for
     op: x the expanded map (NCHW, channels_last), s its mean (B, Ce, 1, 1)
@@ -591,13 +600,15 @@ def test_tail_plain_is_the_module_sequence(d0_backbone, index, dtype):
 
 def _module_fused_backbone(backbone, images, dtype):
     """``fused_backbone_forward`` as it ran before kernel F: kernel E's
-    plain version, then each block's tail as the module path's ops."""
+    plain version, then each block's tail as the module path's ops; the
+    stem's and the unexpanded depthwise's BN and swish as kernel G's plain
+    version, as they run now."""
     x = images.permute(0, 3, 1, 2).to(dtype).contiguous(
         memory_format=torch.channels_last)
     affine = fold_bn_affines([m for m in backbone.modules()
                                  if isinstance(m, BatchNorm)])
-    x = F.silu(_bn(backbone._conv_stem(x), affine[backbone._bn0],
-                   torch.float32)).to(dtype)
+    x = conv_epilogue_plain(backbone._conv_stem(x), *affine[backbone._bn0],
+                            act="swish")
     features, blocks = [], iter(backbone._blocks)
     for repeats in backbone.stage_repeats:
         for _ in range(repeats):
@@ -614,8 +625,8 @@ def _module_fused_backbone(backbone, images, dtype):
                 x = z.permute(0, 3, 1, 2)
                 s = se_mean[:, :, None, None].to(dtype)
             else:
-                x = F.silu(_bn(block._depthwise_conv(x), affine[block._bn1],
-                               torch.float32)).to(dtype)
+                x = conv_epilogue_plain(block._depthwise_conv(x),
+                                        *affine[block._bn1], act="swish")
                 s = x.mean(dim=(2, 3), keepdim=True)
             x = _module_tail(block, affine, x, s, inputs, dtype)
         features.append(x)

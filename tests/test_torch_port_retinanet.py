@@ -412,22 +412,28 @@ def test_conv_epilogue_plain_rounds_once():
     ((8, 2048, 25, 42), 2, True, (8, 256, 1050)),     # ... with downsample
     ((1, 2048, 2, 3), 2, False, (8, 256, 1)),         # a small map
     ((8, 2048, 25, 42), 4, True, (4, 512, 1050)),     # float32, 512 a row
-    ((2, 96, 5, 7), 2, False, (8, 252, 1))])          # 12 vectors a row
+    ((2, 96, 5, 7), 2, False, (8, 252, 1)),           # 12 vectors a row
+    ((4, 3456, 52, 52), 4, False, (4, 256, 18252)),   # B6's widest, float32
+    ((1, 2064, 3, 5), 4, False, (4, 256, 129))])      # 516 vectors a row
 def test_epilogue_plan(shape, itemsize, skip_affine, plan):
-    """The launch geometry: a block a multiple of the row's vectors; two
-    vectors a thread on a map of six or more a thread 132 SMs hold without
-    a skip affine, else a grid of twice what they hold or of eight vectors
-    a thread."""
+    """The launch geometry: a block a multiple of the row's vectors (256
+    threads where the row is longer than 512), and the grid's threads a
+    multiple of the row; two vectors a thread on a map of six or more a
+    thread 132 SMs hold without a skip affine, else a grid of twice what
+    they hold or of eight vectors a thread."""
     from efficientdet_tpu_torch.kernels.conv_epilogue import epilogue_plan
     got = epilogue_plan(math.prod(shape), shape[1], itemsize,
                         skip_affine=skip_affine)
     assert (got.vec, got.threads, got.blocks) == plan
-    assert got.threads % (shape[1] // got.vec) == 0
+    row = shape[1] // got.vec
+    assert got.threads * got.blocks % row == 0
+    if row <= 512:
+        assert got.threads % row == 0
 
 
 def test_epilogue_plan_refuses():
     from efficientdet_tpu_torch.kernels.conv_epilogue import epilogue_plan
     with pytest.raises(ValueError, match="multiple of 8"):
         epilogue_plan(2 * 12, 12, 2)
-    with pytest.raises(ValueError, match="at most 4096"):
-        epilogue_plan(8192, 8192, 2)
+    with pytest.raises(ValueError, match="16 channels, 40 values"):
+        epilogue_plan(40, 16, 2)
